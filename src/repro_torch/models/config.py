@@ -1,0 +1,111 @@
+"""ModelConfig — one dataclass describing every assigned architecture family.
+
+``family`` selects the block structure:
+  dense  — pre-norm decoder blocks (GQA attention + gated MLP)
+  moe    — dense attention + MoE FFN every layer
+  ssm    — Mamba2 (SSD) blocks, attention-free
+  hybrid — Mamba2 backbone + one *shared* attention block applied every
+           ``attn_every`` layers (Zamba2)
+  vlm    — dense decoder whose first ``n_prefix`` positions take precomputed
+           patch embeddings (frontend stub per the assignment)
+  audio  — encoder-only (bidirectional) transformer over precomputed frame
+           embeddings (HuBERT backbone; frontend stub)
+
+A copy of ``repro.models.config`` (the JAX package's module) with
+``SSMConfig`` and ``MoEConfig`` carried inline, so that nothing here
+imports the JAX package.  The knobs that only steered XLA on a TPU
+(chunk sizes, remat, layer scan, sharding, gradient accumulation) are
+left out.  ``attn_impl`` chooses between the plain PyTorch attention
+(``"dense"``) and the hand-written kernels (``"kernel"``, which fall back
+to their plain versions only for tensors on the CPU).  This slice of the
+port runs the dense family only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128          # N
+    head_dim: int = 64          # P
+    expand: int = 2             # d_inner = expand * d_model
+    n_groups: int = 1           # G (B/C groups)
+    conv_width: int = 4
+    chunk: int = 256            # Q — SSD chunk length
+    dt_min: float = 1e-3
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
+
+
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    vocab: int
+    # attention (ignored for family == "ssm")
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    activation: str = "swiglu"       # swiglu | geglu
+    qkv_bias: bool = False
+    rope_fraction: float = 1.0       # 0.5 => partial rotary (ChatGLM "2d")
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    embed_scale: bool = False        # Gemma: scale embeds by sqrt(d)
+    # family extras
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0              # hybrid: shared attn every k ssm layers
+    n_prefix: int = 0                # vlm: vision-embedding positions
+    # ---- attention implementation and dtypes (not architecture) ----
+    attn_impl: str = "kernel"        # dense | kernel
+    # dtype of parameters, activations and the KV cache
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm",
+                               "audio"), self.family
+        if self.family in ("dense", "moe", "vlm", "audio", "hybrid"):
+            assert self.n_heads > 0 and self.head_dim > 0
+            assert self.n_heads % max(self.n_kv_heads, 1) == 0
+        if self.family in ("ssm", "hybrid"):
+            assert self.ssm is not None
+        if self.family == "moe":
+            assert self.moe is not None
+        if self.attn_impl not in ("dense", "kernel"):
+            raise ValueError(f"attn_impl must be 'dense' or 'kernel', "
+                             f"got {self.attn_impl!r}")
+
+    @property
+    def causal(self) -> bool:
+        return self.family != "audio"
+
+    @property
+    def has_decode(self) -> bool:
+        return self.family != "audio"
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_vocab(self.vocab)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

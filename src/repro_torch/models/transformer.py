@@ -1,0 +1,228 @@
+"""The dense decoder in PyTorch: prefill and cached decode for serving.
+
+The port of the dense family of ``repro.models.transformer``.  Where the
+reference scans stacked layer params with ``lax.scan``, the port keeps one
+``DecoderBlock`` per layer in an ``nn.ModuleList`` and loops over them.
+The serving cache is a dict of tensors, ``{"pos": [B] int32,
+"k"/"v": [L, B, Smax, K, D]}``, that ``decode_step`` updates in place
+(the reference returns a new cache and donates the old one to XLA).
+
+Entry points, by the reference's names: ``init_params`` is the
+``Transformer(cfg, device=, generator=)`` constructor (its
+``reset_parameters``); ``Transformer.forward`` (full-sequence logits),
+``prefill`` (prompt -> cache + last logits), ``init_cache`` and
+``decode_step`` (one token per sequence, with an optional ``active``
+mask for continuous batching).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+class DecoderBlock(nn.Module):
+    """One pre-norm block: GQA attention + gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_impl = cfg.attn_impl
+        self.causal = cfg.causal
+        self.ln1 = L.RMSNorm(d, cfg.norm_eps, device)
+        self.attn = L.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                cfg.qkv_bias, device, dtype)
+        self.ln2 = L.RMSNorm(d, cfg.norm_eps, device)
+        self.mlp = L.MLP(d, cfg.d_ff, cfg.activation, device, dtype)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                kv_cache: Optional[tuple] = None,
+                cache_pos: Optional[torch.Tensor] = None):
+        """Full-sequence mode (kv_cache None) or decode mode (x [B,1,d]
+        against the read-only (k_cache, v_cache) of this layer).
+
+        Returns (x_out, (k, v)): this block's keys and values, for the
+        caller to store (prefill) or commit (decode).
+        """
+        h = self.ln1(x)
+        q, k, v = self.attn.proj(h)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        if kv_cache is None:
+            if self.attn_impl == "kernel":
+                o = flash_ops.flash_attention(q, k, v, causal=self.causal)
+            else:
+                o = L.dense_attention(q, k, v, causal=self.causal)
+        else:
+            # deferred commit: attend over the cache plus the in-flight
+            # token's (k, v); the caller writes them into the cache after
+            k_cache, v_cache = kv_cache
+            if self.attn_impl == "kernel":
+                o = decode_ops.decode_attention(
+                    q[:, 0], k_cache, v_cache, cache_pos,
+                    k[:, 0], v[:, 0])[:, None]
+            else:
+                o = L.decode_attention(q, k_cache, v_cache, cache_pos,
+                                       extra_kv=(k, v))
+        x = x + self.attn.out(o)
+        x = x + self.mlp(self.ln2(x))
+        return x, (k, v)
+
+
+def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
+               pos: torch.Tensor) -> None:
+    """Write one layer's new entries into its cache at per-sequence
+    ``pos``, in place.
+
+    cache_arr: [B,Smax,...]; new_vals: [B,1,...]; pos: [B].  A position
+    past the end writes the last slot, as the reference's
+    ``dynamic_update_slice`` clamps its start index.
+    """
+    B, Smax = cache_arr.shape[:2]
+    idx = pos.long().clamp(0, Smax - 1)
+    rows = torch.arange(B, device=cache_arr.device)
+    cache_arr[rows, idx] = new_vals[:, 0].to(cache_arr.dtype)
+
+
+class Transformer(nn.Module):
+    """The dense decoder (``family == "dense"``).
+
+    Weights are drawn from ``generator`` (a seeded ``torch.Generator`` on
+    ``device``; seed 0 if None) with the reference's distributions; the
+    JAX package's own weights load through
+    :func:`repro_torch.models.convert.params_from_jax`.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        dev = resolve_device(device)
+        dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        V, d = cfg.vocab_padded, cfg.d_model
+        self.embed = nn.utils.skip_init(nn.Embedding, V, d, device=dev,
+                                        dtype=dtype)
+        self.layers = nn.ModuleList(DecoderBlock(cfg, dev, dtype)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(d, cfg.norm_eps, dev)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else L.linear(d, V, False, dev, dtype))
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.reset_parameters(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        L.embed_init_(self.embed.weight, generator)
+        if self.lm_head is not None:
+            L.dense_init_(self.lm_head.weight, generator)
+        for blk in self.layers:
+            blk.attn.reset_parameters(generator)
+            blk.mlp.reset_parameters(generator)
+            blk.ln1.scale.fill_(1.0)
+            blk.ln2.scale.fill_(1.0)
+        self.final_norm.scale.fill_(1.0)
+
+    def set_attn_impl(self, impl: str) -> None:
+        """Switch every block between "dense" and "kernel" attention."""
+        self.cfg = self.cfg.replace(attn_impl=impl)
+        for blk in self.layers:
+            blk.attn_impl = impl
+
+    # -- embedding / logits ------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed(tokens)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x)
+        head = (self.embed.weight if self.lm_head is None
+                else self.lm_head.weight)
+        return torch.nn.functional.linear(x, head)
+
+    def _rope(self, positions: torch.Tensor):
+        c = self.cfg
+        return L.rope_angles(positions, c.head_dim, c.rope_fraction,
+                             c.rope_theta)
+
+    # -- full sequence -------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B,S] -> logits [B,S,V]."""
+        x = self._embed(tokens)
+        cos, sin = self._rope(torch.arange(tokens.shape[1],
+                                           device=tokens.device)[None, :])
+        for blk in self.layers:
+            x, _ = blk(x, cos, sin)
+        return self._logits(x)
+
+    # -- serving -------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """An empty serving cache for ``batch_size`` sequences."""
+        c = self.cfg
+        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.head_dim)
+        dt = self.embed.weight.dtype
+        return {"pos": torch.zeros(batch_size, dtype=torch.int32,
+                                   device=self.device),
+                "k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int):
+        """Process the prompts tokens [B,S] (one shared length); returns
+        (cache padded to max_len, last-position logits [B,1,V])."""
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        cos, sin = self._rope(torch.arange(S, device=tokens.device)[None, :])
+        cache = self.init_cache(B, max_len)
+        cache["pos"].fill_(S)
+        for i, blk in enumerate(self.layers):
+            x, (k, v) = blk(x, cos, sin)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        return cache, self._logits(x[:, -1:, :])
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor,
+                    active: Optional[torch.Tensor] = None):
+        """One decode step: tokens [B] or [B,1] -> (cache, logits [B,1,V]).
+
+        Updates ``cache`` in place and returns it.  ``active`` ([B] bool)
+        supports continuous batching: inactive slots do not advance their
+        position (the KV written at their frozen position is overwritten
+        when the slot resumes, so attention never reads it).
+        """
+        if tokens.dim() == 1:
+            tokens = tokens[:, None]
+        pos = cache["pos"]
+        x = self._embed(tokens)
+        cos, sin = self._rope(pos[:, None])
+        for i, blk in enumerate(self.layers):
+            x, (k, v) = blk(x, cos, sin, kv_cache=(cache["k"][i],
+                                                   cache["v"][i]),
+                            cache_pos=pos)
+            # this layer's attention is done: commit its entries now
+            _commit_kv(cache["k"][i], k, pos)
+            _commit_kv(cache["v"][i], v, pos)
+        if active is None:
+            pos.add_(1)
+        else:
+            pos.add_(active.to(torch.int32))
+        return cache, self._logits(x)
