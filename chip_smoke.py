@@ -22,9 +22,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    NaN or infinite, and every prefill and every decode step launched each
    kernel once per layer;
 6. where the time goes: one more serving run under torch.profiler, with
-   the card's busy share and the kernels by device time (reported only).
+   the card's busy share and the kernels by device time (reported only);
+7. the group_pick kernel against its plain version on the card, exact
+   integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 1024,
+   4096} and kmax in {1, 4, 8}, with heavy vruntime ties, ~30% empty
+   slots, an empty row and rows with fewer keys than kmax; kernel, plain
+   and sort-pair times and the bound at the fleet shape;
+8. the fleet backend at 64 engines x 4 lanes (250 requests, sfs-aware,
+   history predictor): the CUDA run equals the port's own CPU run in
+   every per-request field, the dispatch counts, the ETA log and the
+   overload bypasses;
+9. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
+   load 0.8, faults + retries + shedding) on the card under sfs-aware and
+   hash: fingerprint and shed count equal the recorded rows of
+   ``benchmarks/baselines/BENCH_cluster.json``;
+10. the fleet main path: ``repro_torch.launch.fleet`` at 1024 engines x
+   8 lanes, load 0.9, 500,000 requests, seed 11, under sfs-aware and
+   hash: fingerprints equal the recorded rows, and group_pick launched
+   once per stepped tick and 64 times per chunk;
+11. where the fleet's time goes: one short fleet run under
+   torch.profiler (device operations per tick, busy share, group_pick's
+   share; reported only).
 
-It then prints one JSON line describing both kernels and, last, the
+It then prints one JSON line describing the three kernels and, last, the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 """
@@ -50,6 +70,15 @@ ARCH = "qwen2.5-3b"
 SERVE_ARGS = ["--arch", ARCH, "--full", "--device", "cuda", "--requests",
               "48", "--lanes", "4", "--slots", "32", "--max-len", "192",
               "--seed", "0"]
+BASELINES = ROOT / "benchmarks" / "baselines" / "BENCH_cluster.json"
+FLEET = dict(engines=1024, lanes=8, load=0.9, n=500_000, seed=11)
+# the chaos scenario of benchmarks/cluster_sweep.py (run_chaos) at load 0.8
+CHAOS = dict(
+    engines=16, lanes=4, load=0.8, n=20_000, seed=7,
+    workload="bimodal:n=20000,seed=7,load=0.8|zipf:funcs=16,s=1.1",
+    lifecycle="lifecycle:cold=2,ttl=400,cap=8",
+    faults="faults:mttf=1200,mttr=250,blast=4,episodes=3,seed=13,first=800",
+    retry="retry:timeout=400,retries=2,backoff=16,shed=10")
 
 
 def fail(msg: str):
@@ -90,6 +119,8 @@ def build_kernels() -> None:
                 args = re.sub(r"^f(?=L|$)", "f32", m.group(2).replace(
                     "13__nv_bfloat16", "bf16")).replace("Li", ",")
                 entry = f"{m.group(1)}<{args}>"
+            elif "entry function" in ln and "group_pick_kernel" in ln:
+                entry = "group_pick_kernel"
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m:
                 spill = m.group(1)
@@ -376,6 +407,208 @@ def profile_main_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the fleet-stepping path (repro_torch.serving.torch_cluster)
+# ---------------------------------------------------------------------------
+
+
+def pick_inputs(rng, G: int, cap: int, kmax: int):
+    """Keys like the tick body's: heavy vruntime ties, unique rids, ~30%
+    INT32_MAX sentinel slots, row 0 empty and row 1 (when there is one)
+    holding fewer valid keys than kmax."""
+    import torch
+    from repro_torch.kernels.group_pick.ref import IMAX
+    vr = rng.integers(0, 6, (G, cap)).astype(np.int32)
+    rid = rng.permutation(G * cap).reshape(G, cap).astype(np.int32)
+    hole = rng.random((G, cap)) < 0.3
+    hole[0] = True
+    if G > 1:
+        hole[1] = True
+        hole[1, rng.choice(cap, size=max(1, kmax // 2), replace=False)] = \
+            False
+    vr[hole] = IMAX
+    rid[hole] = IMAX
+    return (torch.from_numpy(vr).cuda(), torch.from_numpy(rid).cuda())
+
+
+def check_group_pick() -> dict:
+    """Kernel vs plain, exact, at every case; timed at the fleet shape
+    (G=1024, CAP=32, kmax=8)."""
+    import torch
+    from repro_torch.kernels.group_pick import kernel as gk
+    from repro_torch.kernels.group_pick.ref import pick_order_ref
+    rng = np.random.default_rng(5)
+    n_cases = 0
+    for G in (1, 7, 1024):
+        for cap in (32, 33, 64, 1024, 4096):
+            for kmax in (1, 4, 8):
+                vr, rid = pick_inputs(rng, G, cap, kmax)
+                got = gk.pick_order_cuda(vr, rid, kmax)
+                torch.cuda.synchronize()
+                want = pick_order_ref(vr, rid, kmax)
+                if got.shape != want.shape or not torch.equal(got, want):
+                    bad = (got != want).nonzero()[:5].tolist()
+                    fail(f"group_pick G={G} CAP={cap} kmax={kmax}: kernel "
+                         f"differs from plain at {bad}")
+                n_cases += 1
+    G, cap, kmax = FLEET["engines"], 32, FLEET["lanes"]
+    vr, rid = pick_inputs(rng, G, cap, kmax)
+    ms = time_ms(lambda: gk.pick_order_cuda(vr, rid, kmax), 2000)
+    plain = time_ms(lambda: pick_order_ref(vr, rid, kmax), 200)
+
+    def sort_pair():          # two stable sorts, as pick_order_ref of the
+        o1 = torch.sort(rid, dim=1, stable=True).indices   # JAX package
+        vr1 = torch.gather(vr, 1, o1)
+        o2 = torch.sort(vr1, dim=1, stable=True).indices
+        return torch.gather(o1, 1, o2)[:, :kmax]
+    sorts = time_ms(sort_pair, 200)
+    nbytes = 2 * G * cap * 4 + G * kmax * 4
+    b_ms, b_by = bound(nbytes, 0, "float32")
+    print(f"[pick] {n_cases} cases equal (G in 1,7,1024; CAP in 32,33,64,"
+          f"1024,4096; kmax in 1,4,8); G={G} CAP={cap} kmax={kmax}: "
+          f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={b_ms:.7f} ({b_by}) "
+          f"sort_pair_ms={sorts:.5f} (context only: two stable sorts, "
+          "which differ from the kernel on the tail columns)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"G={G} CAP={cap} kmax={kmax} int32")
+
+
+def request_fields(reqs) -> list:
+    """Every per-request field the engines mutate."""
+    return [(r.rid, r.finish, r.served_ticks, r.n_ctx, r.demoted,
+             r.first_start, r.queue_delay, r.queue_enter, r.vruntime,
+             r.slice_left, r.tokens_done, r.prefill_done, r.slot)
+            for r in reqs]
+
+
+def check_fleet_cpu_vs_cuda() -> None:
+    """64 engines x 4 lanes: the CUDA run equals the CPU run."""
+    from repro_torch.core.spec import (ExperimentSpec, ServerSpec,
+                                       TickWorkloadSpec, run_experiment)
+    spec = ExperimentSpec(
+        servers=tuple(ServerSpec(cores=4) for _ in range(64)),
+        dispatch="sfs-aware", predictor="history",
+        workload=TickWorkloadSpec(n=250, load=1.0, seed=23))
+    runs = {dev: run_experiment(spec, max_ticks=2_000_000, device=dev)
+            for dev in ("cpu", "cuda")}
+    a, b = runs["cpu"], runs["cuda"]
+    same = {"requests": request_fields(a.raw) == request_fields(b.raw),
+            "dispatch_counts": a.dispatch_counts == b.dispatch_counts,
+            "eta_log": a.eta_log == b.eta_log,
+            "overload_bypasses": a.overload_bypasses == b.overload_bypasses}
+    print(f"[fleet64] 64x4 n=250 sfs-aware history: cuda == cpu {same}, "
+          f"n={b.n} fingerprint {b.fingerprint()[:16]}")
+    if not all(same.values()) or b.n != 250:
+        fail("fleet 64x4: the CUDA run differs from the CPU run")
+
+
+def recorded(scenario: str, policy: str, load: float) -> dict:
+    rows = [r for r in json.loads(BASELINES.read_text())["rows"]
+            if r["scenario"] == scenario and r["policy"] == policy
+            and r["load"] == load]
+    if len(rows) != 1:
+        fail(f"{BASELINES.name}: {len(rows)} rows for {scenario} "
+             f"{policy} load {load}")
+    return rows[0]
+
+
+def check_chaos() -> None:
+    from repro_torch.launch import fleet
+    c = CHAOS
+    for policy in ("sfs-aware", "hash"):
+        want = recorded("chaos", policy, c["load"])
+        r = fleet.run(policy, c["engines"], c["lanes"], c["load"], c["n"],
+                      c["seed"], device="cuda", workload=c["workload"],
+                      lifecycle=c["lifecycle"], faults=c["faults"],
+                      retry=c["retry"])
+        fp = r["fingerprint"][:16]
+        print(f"[chaos] {policy}: fingerprint {fp} shed {r['shed']} "
+              f"(recorded {want['provenance']['result_fp']} / "
+              f"{want['shed']}), short p99 {r['short_p99']}, wall "
+              f"{r['wall_s']:.2f} s, stepped ticks {r['stepped_ticks']}")
+        if fp != want["provenance"]["result_fp"] or r["shed"] != want["shed"]:
+            fail(f"chaos {policy}: differs from the recorded row")
+
+
+def run_fleet_main_path() -> int:
+    """launch.fleet at 1024 x 8 under sfs-aware and hash; returns the
+    group_pick launches of the two runs."""
+    from repro_torch.kernels.group_pick import kernel as gk
+    from repro_torch.launch import fleet
+    from repro_torch.serving.torch_cluster import _SCAN_CHUNK
+    total = 0
+    for policy in ("sfs-aware", "hash"):
+        want = recorded("fleet1024", policy, FLEET["load"])
+        argv = ["--policy", policy, "--device", "cuda"] + [
+            a for k, v in FLEET.items() for a in (f"--{k}", str(v))]
+        gk.launches = 0
+        r = fleet.main(argv)
+        n = gk.launches
+        scans = r["phases"].get("torch_scan", {}).get("calls", 0)
+        expect = r["stepped_ticks"] + _SCAN_CHUNK * scans
+        fp = r["fingerprint"][:16]
+        print(f"[fleet1024] {policy}: fingerprint {fp} (recorded "
+              f"{want['provenance']['result_fp']}), short p99 "
+              f"{r['short_p99']} long p99 {r['long_p99']} (recorded "
+              f"{want['short_p99']}/{want['long_p99']}), group_pick "
+              f"launches {n} = {r['stepped_ticks']} stepped ticks + "
+              f"{_SCAN_CHUNK} x {scans} chunks")
+        if fp != want["provenance"]["result_fp"] or r["n"] != FLEET["n"]:
+            fail(f"fleet1024 {policy}: differs from the recorded row")
+        if n == 0 or n != expect:
+            fail(f"fleet1024 {policy}: {n} group_pick launches, expected "
+                 f"{expect}")
+        total += n
+    return total
+
+
+def profile_fleet() -> None:
+    """Where the fleet's time goes: one short 1024 x 8 run (sfs-aware,
+    20,000 requests) under torch.profiler.  Reports, never fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import fleet
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = fleet.run("sfs-aware", FLEET["engines"], FLEET["lanes"],
+                      FLEET["load"], 20_000, FLEET["seed"], device="cuda")
+        torch.cuda.synchronize()
+    wall = r["wall_s"]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e6
+    pick = sum(e.device_time_total for e in kernels
+               if "group_pick" in e.name) / 1e6
+    from repro_torch.serving.torch_cluster import _SCAN_CHUNK
+    steps = r["stepped_ticks"]
+    # tick bodies the device ran: stepped ticks and every chunk's 64,
+    # rolled-back chunks included
+    bodies = max(steps + _SCAN_CHUNK * r["phases"].get(
+        "torch_scan", {}).get("calls", 0), 1)
+    print(f"[fprofile] 1024x8 sfs-aware n=20000: finish tick "
+          f"{r['ticks']}, {steps} stepped ticks, {r['scan_chunks']} "
+          f"chunks, {bodies} tick bodies, wall {wall:.3f} s, "
+          f"{len(kernels)} device ops ({len(kernels) / bodies:.0f} per "
+          f"tick body)")
+    if busy <= 0:
+        print("[fprofile] no device activity traced: busy share not "
+              "measured")
+        return
+    print(f"[fprofile] device busy {busy:.4f} s = {100 * busy / wall:.2f}% "
+          f"of wall (idle {100 * (1 - busy / wall):.2f}%), "
+          f"{1e3 * busy / bodies:.3f} ms per tick body; group_pick "
+          f"{pick * 1e3:.3f} ms = {100 * pick / busy:.2f}% of busy")
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"[fprofile]   {ms:9.3f} ms {100 * ms / 1e3 / busy:5.1f}% "
+              f"x{n:6d}  {name[:90]}")
+    print(f"[fprofile] phases {json.dumps(r['phases'])}")
+
+
 def main() -> int:
     try:
         import torch
@@ -398,9 +631,15 @@ def main() -> int:
     check_full_model()
     launches = run_main_path()
     profile_main_path()
+    pick = check_group_pick()
+    check_fleet_cpu_vs_cuda()
+    check_chaos()
+    launches["group_pick"] = run_fleet_main_path()
+    profile_fleet()
     kernels = []
     for name, rec, line in (("flash_attention", flash, 71),
-                            ("decode_attention", decode, 69)):
+                            ("decode_attention", decode, 69),
+                            ("group_pick", pick, 55)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": f"src/repro/kernels/{name}/kernel.py:"

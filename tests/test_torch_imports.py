@@ -48,14 +48,40 @@ def test_port_files_import_no_jax_and_no_reference():
     assert not bad, bad
 
 
-def test_scheduler_registry_provider_is_the_port():
-    from repro_torch.core.spec import SCHEDULER_REGISTRY
-    assert SCHEDULER_REGISTRY.provider == "repro_torch.serving.schedulers"
+def test_registry_providers_are_the_port():
+    from repro_torch.core import spec
+    assert (spec.SCHEDULER_REGISTRY.provider
+            == "repro_torch.serving.schedulers")
+    assert spec.DISPATCH_REGISTRY.provider == "repro_torch.core.dispatch"
+    assert spec.PREDICTOR_REGISTRY.provider == "repro_torch.core.predict"
+    assert spec.WORKLOAD_REGISTRY.provider == "repro_torch.core.workload"
+    for reg in (spec.SCHEDULER_REGISTRY, spec.DISPATCH_REGISTRY,
+                spec.PREDICTOR_REGISTRY, spec.WORKLOAD_REGISTRY):
+        # a lookup loads the provider, and every class it registers
+        # lives in the port
+        assert reg.names()
+        assert all(reg.get(n).__module__.startswith("repro_torch.")
+                   for n in reg.names()), reg.kind
+
+
+def test_engines_of_the_reference_are_not_ported():
+    from repro_torch import ExperimentSpec
+    for engine in ("des", "tick", "vector", "jax"):
+        with pytest.raises(ValueError, match="not ported"):
+            ExperimentSpec(engine=engine)
+    assert ExperimentSpec().engine == "torch"
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.fleet\n"
+            "import repro_torch.serving.torch_cluster\n"
+            "from repro_torch import ExperimentSpec, run_experiment\n"
+            "from repro_torch.core.spec import TickWorkloadSpec\n"
+            "run_experiment(ExperimentSpec(servers=('cores=2',) * 2,\n"
+            "    dispatch='sfs-aware', predictor='history',\n"
+            "    workload='bimodal:n=20|zipf:funcs=4'), device='cpu')\n"
             "from repro_torch.serving import Engine, EngineConfig\n"
             "from repro_torch.serving.schedulers import make_scheduler\n"
             "for p in ('sfs', 'cfs', 'fifo', 'srtf'):\n"
@@ -84,6 +110,17 @@ def test_entry_points_default_to_cuda():
         Transformer(configs.get_reduced("qwen2.5-3b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--requests", "2"])
+    import repro_torch
+    from repro_torch.core.spec import ServerSpec, TickWorkloadSpec
+    from repro_torch.launch import fleet
+    from repro_torch.serving.torch_cluster import TorchCluster
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchCluster([ServerSpec(cores=2)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.run_experiment(repro_torch.ExperimentSpec(
+            servers=("cores=2",), workload=TickWorkloadSpec(n=4)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.main(["--engines", "2", "--lanes", "2", "--n", "4"])
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
