@@ -596,9 +596,7 @@ class ServerSpec:
 
     ``cores`` is the server's decode lanes; ``slots`` (resident cache
     slots, default ``16 * cores``) and ``max_len`` (per-slot cache
-    capacity) shape its cache.  ``engine`` is kept so that the JAX
-    package's server strings parse; the fleet backend refuses
-    ``"object"`` (it steps whole groups, never per-object engines).
+    capacity) shape its cache.
 
     The spec has a terse one-line string form
     (``"cores=6;scheduler=sfs:O=3;slots=96"``, non-default fields only)
@@ -609,16 +607,11 @@ class ServerSpec:
     scheduler: SchedulerSpec = SchedulerSpec("sfs")
     slots: Optional[int] = None
     max_len: Optional[int] = None
-    engine: Optional[str] = None     # None | vector | object | jax | torch
 
     def __post_init__(self):
         if not isinstance(self.scheduler, SchedulerSpec):
             object.__setattr__(self, "scheduler",
                                SchedulerSpec.parse(self.scheduler))
-        if self.engine not in (None, "vector", "object", "jax", "torch"):
-            raise ValueError(f"unknown server engine {self.engine!r}; "
-                             "expected None, 'vector', 'object', 'jax' or "
-                             "'torch'")
 
     # -- string grammar (";"-separated so scheduler specs nest) ---------
     def __str__(self) -> str:
@@ -629,13 +622,11 @@ class ServerSpec:
             parts.append(f"slots={self.slots}")
         if self.max_len is not None:
             parts.append(f"max_len={self.max_len}")
-        if self.engine is not None:
-            parts.append(f"engine={self.engine}")
         return ";".join(parts)
 
     @classmethod
     def parse(cls, spec) -> "ServerSpec":
-        """``"cores=6;scheduler=sfs:O=3;engine=vector"`` -> spec (the
+        """``"cores=6;scheduler=sfs:O=3;slots=96"`` -> spec (the
         converse of ``str``; unknown fields raise)."""
         if isinstance(spec, cls):
             return spec
@@ -653,11 +644,9 @@ class ServerSpec:
                 kw[k] = SchedulerSpec.parse(v)
             elif k in ("cores", "slots", "max_len"):
                 kw[k] = int(v)
-            elif k == "engine":
-                kw[k] = v
             else:
                 raise ValueError(f"unknown server field {k!r}; expected "
-                                 "cores/scheduler/slots/max_len/engine")
+                                 "cores/scheduler/slots/max_len")
         return cls(**kw)
 
     # -- converter ------------------------------------------------------
@@ -792,10 +781,9 @@ class ExperimentSpec:
     form one group per shape.  ``workload`` is a :class:`TickWorkloadSpec`
     or staged :class:`WorkloadSpec` (a ``"gen|stage|..."`` pipe string
     parses to the latter), or None when requests are passed to
-    :func:`run_experiment` directly.  ``dispatch_latency`` is a DES knob
-    and must stay 0.  ``lifecycle`` / ``scaling`` opt the fleet into cold
-    starts, failure/drain and autoscaling; ``faults`` / ``retry`` into
-    correlated failure episodes with recovery and request
+    :func:`run_experiment` directly.  ``lifecycle`` / ``scaling`` opt the
+    fleet into cold starts, failure/drain and autoscaling; ``faults`` /
+    ``retry`` into correlated failure episodes with recovery and request
     timeouts/retries/hedging/shedding (:mod:`repro_torch.core.chaos`).
 
     ``engine="torch"`` (the only engine of the port) runs tick semantics
@@ -809,7 +797,6 @@ class ExperimentSpec:
     dispatch: DispatchSpec = DispatchSpec("hash")
     predictor: object = PredictorSpec("oracle")
     workload: object = None
-    dispatch_latency: float = 0.0
     lifecycle: object = None                 # None | LifecycleSpec | str
     scaling: object = None                   # None | ScalingSpec | str
     faults: object = None                    # None | FaultSpec | str
@@ -884,9 +871,6 @@ class ExperimentSpec:
             mx = self.scaling.max_servers
             if mx is not None and mx < self.scaling.min_servers:
                 raise ValueError("scaling max must be >= min")
-        if self.dispatch_latency:
-            raise ValueError("dispatch_latency is DES-only (the tick "
-                             "engine has no network-delay model)")
 
     @property
     def total_cores(self) -> int:

@@ -11,8 +11,8 @@ The four execution backends (DES ``simulator.py``, object tick
 ``serving/jax_cluster.py``) emit the *same* typed per-request lifecycle
 events into a :class:`TraceRecorder`, which makes equal-trace agreement
 a correctness tool strictly stronger than end-state fingerprints
-(``tests/test_agreement.py``) and gives every run a Perfetto-loadable
-Chrome trace export.
+(``tests/test_agreement.py``).  The JAX package's Chrome-trace exporters
+are not copied: nothing in the port calls them.
 
 Everything here is strictly opt-in: engines hold ``trace = None`` /
 ``prof = None`` defaults and every emission site is guarded with a
@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import json
-import time
 from typing import Optional
 
 # ---------------------------------------------------------------------------
@@ -97,9 +95,6 @@ class TraceRecorder:
         return sorted(self.events,
                       key=lambda e: (e[0], ko[e[1]], e[2], e[3]))
 
-    def by_rid(self, rid: int) -> list:
-        return [e for e in self.canonical() if e[2] == rid]
-
     def counts(self) -> dict:
         out = dict.fromkeys(KINDS, 0)
         for e in self.events:
@@ -113,61 +108,6 @@ class TraceRecorder:
                   None if e[4] is None else round(float(e[4]), 9))
                  for e in self.canonical()]
         return hashlib.sha256(repr(canon).encode()).hexdigest()
-
-    # -- export --------------------------------------------------------------
-
-    def chrome_events(self, pid: int = 0, label: str = "run",
-                      scale: float = 1.0) -> list:
-        """Chrome-trace (Perfetto-loadable) event dicts for this trace.
-
-        One process per recorder (``pid``/``label``), one thread per
-        server.  Request lifetimes (dispatch -> complete) render as "X"
-        duration events; admit/bypass/demote/preempt as thread-scoped
-        instants.  ``scale`` converts engine time units to microseconds
-        (ticks map 1:1 by default — Perfetto only needs monotone time).
-        """
-        disp, comp, servers = {}, {}, set()
-        out = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
-                "args": {"name": label}}]
-        for t, kind, rid, server, aux in self.canonical():
-            if kind == "dispatch":
-                disp[rid] = (t, server, aux)
-            elif kind == "complete":
-                comp[rid] = (t, server)
-            if server >= 0:
-                servers.add(server)
-            if kind in ("admit", "bypass", "demote", "preempt",
-                        "cold_start", "fail", "requeue", "scale",
-                        "shed", "retry", "timeout", "recover"):
-                out.append({"name": kind, "ph": "i", "s": "t",
-                            "ts": t * scale, "pid": pid, "tid": server,
-                            "args": {"rid": rid}})
-        for rid, (t1, server) in comp.items():
-            t0, dserver, eta = disp.get(rid, (t1, server, None))
-            out.append({"name": f"r{rid}", "ph": "X", "ts": t0 * scale,
-                        "dur": max(t1 - t0, 0) * scale, "pid": pid,
-                        "tid": server,
-                        "args": {"rid": rid, "eta": eta,
-                                 "routed_to": dserver}})
-        for s in sorted(servers):
-            out.append({"name": "thread_name", "ph": "M", "pid": pid,
-                        "tid": s, "args": {"name": f"server {s}"}})
-        return out
-
-
-def save_chrome_trace(path: str, named_traces: dict,
-                      scale: float = 1.0) -> str:
-    """Write one Chrome-trace JSON merging several recorders — each
-    ``{label: TraceRecorder}`` entry becomes its own process row, so
-    e.g. an sfs-aware run and a hash run sit side by side in Perfetto.
-    """
-    events = []
-    for pid, (label, tr) in enumerate(named_traces.items()):
-        events += tr.chrome_events(pid=pid, label=label, scale=scale)
-    with open(path, "w") as f:
-        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f,
-                  default=float)
-    return path
 
 
 # ---------------------------------------------------------------------------
@@ -228,10 +168,6 @@ class FleetSeries:
             "counters": dict(self.counters),
         }
 
-    def to_dict(self) -> dict:
-        return {"cadence": self.cadence, "samples": self.samples,
-                "counters": dict(self.counters)}
-
 
 # ---------------------------------------------------------------------------
 # Host-path profiling
@@ -267,22 +203,11 @@ class HostProfile:
             slot[0] += dt
             slot[1] += 1
 
-    def timer(self):
-        return time.perf_counter()
-
     def summary(self) -> dict:
         return {name: {"total_s": round(tot, 6), "calls": n,
                        "mean_us": round(tot / n * 1e6, 3) if n else 0.0}
                 for name, (tot, n) in sorted(
                     self.phases.items(), key=lambda kv: -kv[1][0])}
-
-    def format(self) -> str:
-        total = sum(tot for tot, _ in self.phases.values()) or 1.0
-        lines = [f"  {name:14s} {s['total_s']:9.3f}s "
-                 f"{self.phases[name][0] / total * 100:5.1f}%  "
-                 f"x{s['calls']:<9d} {s['mean_us']:10.1f}us/call"
-                 for name, s in self.summary().items()]
-        return "\n".join(lines) if lines else "  (no phases recorded)"
 
 
 # ---------------------------------------------------------------------------

@@ -1034,7 +1034,7 @@ class TorchCluster(ClusterFrontend):
             ok = (ec.policy in VECTOR_POLICIES
                   and (set(ec.sched_kw) <= _SFS_KW if ec.policy == "sfs"
                        else not ec.sched_kw))
-            if s.engine == "object" or not ok:
+            if not ok:
                 raise ValueError(
                     f"server {i}: scheduler {ec.policy!r} with knobs "
                     f"{ec.sched_kw!r} cannot run on the torch fleet "

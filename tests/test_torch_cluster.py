@@ -84,5 +84,5 @@ def test_torch_backend_bit_exact_on_mixed_groups():
     plus cfs servers), each stepped by its own tick program."""
     servers = ("cores=6", "cores=6", "cores=4", "cores=2;scheduler=cfs",
                "cores=2;scheduler=cfs")
-    jx, tt = run_both(servers, "sfs-aware", "oracle", 400, 1.0, 11)
+    jx, tt = run_both(servers, "sfs-aware", "oracle", 150, 1.0, 11)
     assert_equal_runs(jx, tt)
