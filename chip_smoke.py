@@ -7,22 +7,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi) and the matmul precision
    settings, set explicitly;
-2. build both CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a (ptxas report printed);
-3. each kernel against its plain PyTorch version on the card, in float32
-   (atol = rtol = 2e-5) and bfloat16 (2e-2), with kernel, plain and
-   library-call times and the kernel's bound;
+2. build the four CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+   sm_90a, all at once (ptxas report printed);
+3. each attention kernel against its plain PyTorch version on the card,
+   in float32 (atol = rtol = 2e-5) and bfloat16 (2e-2), at qwen2.5-3b's
+   and zamba2-1.2b's shapes among others, with kernel, plain and
+   library-call times and the kernel's bound; the ssd_scan kernel against
+   its plain version (float32 atol 3e-5 / rtol 3e-4, bfloat16 x 3e-2) at
+   the serving prefill's shape, a full 256-step chunk, zamba2's d_state,
+   an odd head count, a strongly decaying state and a dt = 0 tail (which
+   must add exactly nothing), with kernel, plain and two-einsum times and
+   the bound;
 4. qwen2.5-3b at full width, random weights from a seed, in float32: an
    8-token prefill of 4 prompts and 3 decode steps through the kernels
    and through the plain attention; the logits must agree within
-   1e-3 * max|logits|;
-5. the main path: ``repro_torch.launch.serve.main`` on qwen2.5-3b at full
-   width in bfloat16 under ``sfs`` and then ``cfs`` (48 requests, 4
-   lanes, 32 slots, max-len 192): every request completes, no logit is
-   NaN or infinite, and every prefill and every decode step launched each
-   kernel once per layer;
-6. where the time goes: one more serving run under torch.profiler, with
-   the card's busy share and the kernels by device time (reported only);
+   1e-3 * max|logits|; then mamba2-1.3b and zamba2-1.2b the same way with
+   300-token prompts (two SSD chunks, the second ragged) and one slot
+   inactive in the decode steps;
+5. the main path: ``repro_torch.launch.serve.main`` at full width in
+   bfloat16 (48 requests, 4 lanes, 32 slots, max-len 192) on qwen2.5-3b
+   under ``sfs`` and ``cfs``, then on mamba2-1.3b and zamba2-1.2b under
+   ``sfs``: every request completes, no logit is NaN or infinite, every
+   prefill launched ssd_scan once per Mamba layer and flash-attention once
+   per attention layer or shared-block application, every decode step
+   launched decode-attention as often, and the schedule (mean, median and
+   P99 turnaround, mean RTE, context switches) equals a ``--synthetic``
+   run's with the same arguments;
+6. where the time goes: one more serving run of qwen2.5-3b (16
+   requests) and one of mamba2-1.3b (8 requests) under torch.profiler
+   (device activity only), with the card's busy share, device operations
+   per tick, ssd_scan's share and the kernels by device time (reported
+   only);
 7. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 1024,
    4096} and kmax in {1, 4, 8}, with heavy vruntime ties, ~30% empty
@@ -44,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    torch.profiler (device operations per tick, busy share, group_pick's
    share; reported only).
 
-It then prints one JSON line describing the three kernels and, last, the
+Each phase prints its wall time (``[time]``).  It then prints one JSON
+line describing the four kernels and, last, the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 """
@@ -66,10 +82,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the SSD step's tolerances, as tests/test_kernels.py holds the TPU kernel
+SSD_TOL = {"float32": dict(atol=3e-5, rtol=3e-4),
+           "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 ARCH = "qwen2.5-3b"
-SERVE_ARGS = ["--arch", ARCH, "--full", "--device", "cuda", "--requests",
-              "48", "--lanes", "4", "--slots", "32", "--max-len", "192",
-              "--seed", "0"]
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-1.2b")
+SERVE_ARGS = ["--full", "--device", "cuda", "--requests", "48", "--lanes",
+              "4", "--slots", "32", "--max-len", "192", "--seed", "0"]
 BASELINES = ROOT / "benchmarks" / "baselines" / "BENCH_cluster.json"
 FLEET = dict(engines=1024, lanes=8, load=0.9, n=500_000, seed=11)
 # the chaos scenario of benchmarks/cluster_sweep.py (run_chaos) at load 0.8
@@ -114,7 +133,8 @@ def build_kernels() -> None:
         entry, rows = "?", []
         for ln in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"entry function '\w*?\d+(flash_fwd_kernel|"
-                          r"decode_kernel)I(\w+?)EE", ln)
+                          r"decode_kernel|ssd_y_kernel|ssd_state_kernel)"
+                          r"I(\w+?)E[Ev]", ln)
             if m:       # mangled template arguments: f / bf16, Li<D>
                 args = re.sub(r"^f(?=L|$)", "f32", m.group(2).replace(
                     "13__nv_bfloat16", "bf16")).replace("Li", ",")
@@ -152,16 +172,16 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, dtype: str) -> float:
+def compare(name: str, got, want, dtype: str, tol=None) -> float:
     import torch
-    tol = TOL[dtype]
+    tol = tol or dict(atol=TOL[dtype], rtol=TOL[dtype])
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         fail(f"{name}: non-finite kernel output")
     err = (g - w).abs().max().item()
-    if not torch.allclose(g, w, atol=tol, rtol=tol):
+    if not torch.allclose(g, w, **tol):
         fail(f"{name}: max |kernel - plain| = {err:.3g} beyond "
-             f"atol = rtol = {tol}")
+             f"atol {tol['atol']}, rtol {tol['rtol']}")
     return err
 
 
@@ -174,6 +194,8 @@ def check_flash(gen) -> dict:
     # (label, B, S, H, K, D, causal, dtype, timed)
     cases = [("main", 1, 8, 16, 2, 128, True, "bfloat16", True),
              ("main", 1, 8, 16, 2, 128, True, "float32", False),
+             ("zamba2", 1, 8, 32, 32, 64, True, "bfloat16", True),
+             ("zamba2", 1, 8, 32, 32, 64, True, "float32", False),
              ("long", 1, 2048, 16, 2, 128, True, "bfloat16", True),
              ("gqa", 2, 256, 16, 4, 64, True, "float32", False),
              ("gqa", 2, 256, 16, 4, 64, True, "bfloat16", False),
@@ -218,75 +240,199 @@ def check_flash(gen) -> dict:
 
 
 def check_decode(gen) -> dict:
+    """Kernel vs plain at qwen2.5-3b's decode shape (timed; returns its
+    record) and at zamba2-1.2b's (timed and printed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    B, Smax, H, K, D = 32, 192, 16, 2, 128
-    lens = torch.randint(1, Smax + 1, (B,), generator=gen, device="cuda")
-    lens[0], lens[1], lens[2] = 0, Smax, 1
-    kv_len = lens.to(torch.int32)
+    B, Smax = 32, 192
     main = None
-    for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        q = torch.randn(B, H, D, generator=gen, device="cuda").to(dt)
-        kc = torch.randn(B, Smax, K, D, generator=gen, device="cuda").to(dt)
-        vc = torch.randn(B, Smax, K, D, generator=gen, device="cuda").to(dt)
-        kn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
-        vn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
-        for extra in (True, False):
-            args = (q, kc, vc, kv_len) + ((kn, vn) if extra else ())
-            out = dk.decode_attention_cuda(*args)
-            torch.cuda.synchronize()
-            err = compare(f"decode extra={extra} {dtype}", out,
-                          decode_attention_ref(*args), dtype)
-            line = (f"[decode] B={B} Smax={Smax} H={H} K={K} D={D} "
-                    f"extra={extra} {dtype}: max_abs_err={err:.3g}")
-            if dtype == "bfloat16" and extra:
-                ms = time_ms(lambda: dk.decode_attention_cuda(*args), 500)
-                plain = time_ms(lambda: decode_attention_ref(*args), 200)
-                mask = (torch.arange(Smax, device="cuda")[None, :]
-                        < kv_len[:, None])[:, None, None, :]
-                qt = q[:, :, None, :]
-                kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
-                el = q.element_size()
-                n = kv_len.clamp(0, Smax).sum().item()
-                nbytes = (2 * q.numel() * el + kv_len.numel() * 4
-                          + 2 * n * K * D * el + 2 * kn.numel() * el)
-                b_ms, b_by = bound(nbytes, 4 * H * D * (n + B), dtype)
-                line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
-                         f"sdpa_ms={lib:.4f} bound_ms={b_ms:.6f} ({b_by})")
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                            shape=f"B={B} Smax={Smax} H={H} K={K} D={D} "
-                                  f"ragged kv_len + in-flight entry "
-                                  f"{dtype}")
-            print(line)
+    for label, H, K, D in (("main", 16, 2, 128), ("zamba2", 32, 32, 64)):
+        lens = torch.randint(1, Smax + 1, (B,), generator=gen, device="cuda")
+        lens[0], lens[1], lens[2] = 0, Smax, 1
+        kv_len = lens.to(torch.int32)
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(B, H, D, generator=gen, device="cuda").to(dt)
+            kc = torch.randn(B, Smax, K, D, generator=gen,
+                             device="cuda").to(dt)
+            vc = torch.randn(B, Smax, K, D, generator=gen,
+                             device="cuda").to(dt)
+            kn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
+            vn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
+            for extra in (True, False):
+                args = (q, kc, vc, kv_len) + ((kn, vn) if extra else ())
+                out = dk.decode_attention_cuda(*args)
+                torch.cuda.synchronize()
+                err = compare(f"decode {label} extra={extra} {dtype}", out,
+                              decode_attention_ref(*args), dtype)
+                line = (f"[decode] {label:6s} B={B} Smax={Smax} H={H} K={K} "
+                        f"D={D} extra={extra} {dtype}: max_abs_err={err:.3g}")
+                if dtype == "bfloat16" and extra:
+                    ms = time_ms(lambda: dk.decode_attention_cuda(*args), 500)
+                    plain = time_ms(lambda: decode_attention_ref(*args), 200)
+                    mask = (torch.arange(Smax, device="cuda")[None, :]
+                            < kv_len[:, None])[:, None, None, :]
+                    qt = q[:, :, None, :]
+                    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+                    el = q.element_size()
+                    n = kv_len.clamp(0, Smax).sum().item()
+                    nbytes = (2 * q.numel() * el + kv_len.numel() * 4
+                              + 2 * n * K * D * el + 2 * kn.numel() * el)
+                    b_ms, b_by = bound(nbytes, 4 * H * D * (n + B), dtype)
+                    line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
+                             f"sdpa_ms={lib:.4f} bound_ms={b_ms:.6f} "
+                             f"({b_by})")
+                    if label == "main":
+                        main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib,
+                                    shape=f"B={B} Smax={Smax} H={H} K={K} "
+                                          f"D={D} ragged kv_len + in-flight "
+                                          f"entry {dtype}")
+                print(line)
     return main
 
 
-def check_full_model() -> None:
-    """Kernel path vs plain path, full width, float32."""
+def ssd_inputs(gen, b, nc, Q, H, P, N, decay=1.0, dt_zero_from=None):
+    """xc, dtc, cum, tot, Bc, Cc on the card, float32, as ssd_chunked
+    hands them to the kernel: softplus step sizes, log decays of -decay *
+    softplus(N(0, 1)) a step, B and C ~ N(0, 1/4); dt = 0 from step
+    ``dt_zero_from`` of every chunk on (the padded tail)."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    xc = randn(b, nc, Q, H, P)
+    dtc = F.softplus(randn(b, nc, Q, H))
+    la = -decay * F.softplus(randn(b, nc, Q, H))
+    if dt_zero_from is not None:
+        dtc[:, :, dt_zero_from:] = 0.0
+        la[:, :, dt_zero_from:] = 0.0
+    cum = torch.cumsum(la, dim=2)
+    tot = cum[:, :, -1].contiguous()
+    return xc, dtc, cum, tot, 0.5 * randn(b, nc, Q, 1, N), \
+        0.5 * randn(b, nc, Q, 1, N)
+
+
+def ssd_work(b, nc, Q, H, P, N, x_bytes: int):
+    """(bytes moved, operations) of the intra-chunk step: each input read
+    once, each output written once; C.B once per chunk (one group shared
+    by all heads), then per head the masked decay weights, w.x and the
+    state's outer-product sum."""
+    pairs = Q * (Q + 1) // 2
+    nbytes = (b * nc * (Q * H * P * x_bytes + 2 * Q * H * 4 + H * 4
+                        + 2 * Q * N * 4)
+              + b * nc * (Q * H * P + H * P * N) * 4)
+    flops = b * nc * (2 * pairs * N
+                      + H * (pairs * (3 + 2 * P) + Q * (3 + 2 * P * N)))
+    return nbytes, flops
+
+
+def check_ssd(gen) -> dict:
+    """The ssd_scan kernel vs its plain version at every case; returns the
+    main path's record (mamba2-1.3b's prefill of an 8-token prompt)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    # (label, b, nc, Q, H, P, N, dict of ssd_inputs options, timed)
+    cases = [("main", 1, 1, 8, 64, 64, 128, {}, True),
+             ("chunk", 2, 8, 256, 64, 64, 128, {}, True),
+             ("zamba2", 1, 1, 8, 64, 64, 64, {}, True),
+             ("zamba2", 2, 2, 256, 64, 64, 64, {}, False),
+             ("oddH", 1, 2, 100, 13, 64, 128, {}, False),
+             ("small", 1, 3, 64, 8, 32, 16, {}, False),
+             ("decay", 1, 2, 256, 16, 64, 128, {"decay": 100.0}, False),
+             ("dt0tail", 1, 1, 256, 16, 64, 128, {"dt_zero_from": 200},
+              False)]
+    main, err_max = None, 0.0
+    for label, b, nc, Q, H, P, N, opts, timed in cases:
+        xc, dtc, cum, tot, Bc, Cc = ssd_inputs(gen, b, nc, Q, H, P, N,
+                                               **opts)
+        for dtype in ("float32", "bfloat16"):
+            x = xc.to(getattr(torch, dtype))
+            y, st = sk.ssd_intra_chunk_cuda(x, dtc, cum, tot, Bc, Cc)
+            torch.cuda.synchronize()
+            y_p, st_p = ssd_intra_chunk_ref(x, dtc, cum, tot, Bc, Cc)
+            shape = f"b={b} nc={nc} Q={Q} H={H} P={P} N={N}"
+            err = max(compare(f"ssd {label} {shape} {dtype} y", y, y_p,
+                              dtype, SSD_TOL[dtype]),
+                      compare(f"ssd {label} {shape} {dtype} states", st,
+                              st_p, dtype, SSD_TOL[dtype]))
+            err_max = max(err_max, err) if dtype == "float32" else err_max
+            line = (f"[ssd] {label:7s} {shape} {dtype} x: "
+                    f"max_abs_err={err:.3g}")
+            if "dt_zero_from" in opts:
+                # the dt = 0 steps must add exactly nothing, whatever x
+                xz = x.clone()
+                xz[:, :, opts["dt_zero_from"]:] = 0
+                y0, st0 = sk.ssd_intra_chunk_cuda(xz, dtc, cum, tot, Bc, Cc)
+                if not (torch.equal(y0, y) and torch.equal(st0, st)):
+                    fail(f"ssd {label} {dtype}: the dt = 0 steps changed "
+                         "the outputs")
+                line += " (dt = 0 steps add exactly 0)"
+            if timed and dtype == "float32":
+                iters = 500 if Q <= 64 else 50
+                ms = time_ms(lambda: sk.ssd_intra_chunk_cuda(
+                    x, dtc, cum, tot, Bc, Cc), iters)
+                plain = time_ms(lambda: ssd_intra_chunk_ref(
+                    x, dtc, cum, tot, Bc, Cc), max(iters // 5, 10))
+                # context only: the two contractions of the plain version
+                # with their weights precomputed
+                pairs_w = torch.randn(b, nc, Q, Q, H, device="cuda")
+                wB = Bc.expand(b, nc, Q, H, N).contiguous()
+                two = time_ms(lambda: (
+                    torch.einsum("bclmh,bcmhp->bclhp", pairs_w, x),
+                    torch.einsum("bcqhn,bcqhp->bchpn", wB, x)),
+                    max(iters // 5, 10))
+                b_ms, b_by = bound(*ssd_work(b, nc, Q, H, P, N, 4), dtype)
+                line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
+                         f"two_einsum_ms={two:.4f} bound_ms={b_ms:.6f} "
+                         f"({b_by})")
+                if label == "main":
+                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None,
+                                shape=f"{shape} float32 (mamba2-1.3b "
+                                      "prefill of 8 tokens)")
+            print(line)
+    print(f"[ssd] {2 * len(cases)} cases agree; largest float32 "
+          f"|kernel - plain| {err_max:.3g}")
+    main["max_abs_err"] = err_max
+    return main
+
+
+def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
+    """Kernel path vs plain path, full width, float32: a prefill of 4
+    prompts and 3 decode steps with the last slot inactive."""
     import torch
     from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.models.transformer import Transformer
-    cfg = configs.get(ARCH).replace(dtype="float32", attn_impl="kernel")
+    cfg = configs.get(arch).replace(dtype="float32", attn_impl="kernel")
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator("cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (4, 8), generator=gen,
+    prompts = torch.randint(0, cfg.vocab, (4, prompt_len), generator=gen,
                             device="cuda")
     steps = torch.randint(0, cfg.vocab, (3, 4), generator=gen,
                           device="cuda")
     active = torch.tensor([True, True, True, False], device="cuda")
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     runs = {}
     for impl in ("kernel", "dense"):
         model.set_attn_impl(impl)
-        cache, logits = model.prefill(prompts, 192)
+        sk.launches = 0
+        cache, logits = model.prefill(prompts, max_len)
+        if sk.launches != (n_mamba if impl == "kernel" else 0):
+            fail(f"{arch} {impl} prefill: {sk.launches} ssd_scan launches "
+                 f"for {n_mamba} Mamba layers")
         out = [logits[:, 0]]
         for tok in steps:
             cache, logits = model.decode_step(cache, tok, active=active)
@@ -295,30 +441,44 @@ def check_full_model() -> None:
     torch.cuda.synchronize()
     a, b = runs["kernel"], runs["dense"]
     if not torch.isfinite(a).all() or a.shape != (4, 4, cfg.vocab_padded):
-        fail(f"full-width logits non-finite or of shape {tuple(a.shape)}")
+        fail(f"{arch}: full-width logits non-finite or of shape "
+             f"{tuple(a.shape)}")
     scale = b.abs().max().item()
     err = (a - b).abs().max().item()
     top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    print(f"[model] {ARCH} full width float32, {n_params / 1e9:.3f} B "
-          f"params: kernel vs plain max|dlogits|={err:.3g} "
-          f"(limit {1e-3 * scale:.3g} = 1e-3*max|logits|), top-1 agreement "
-          f"{top1:.3f} over {a.shape[0] * a.shape[1]} positions, "
+    print(f"[model] {arch} full width float32, {n_params / 1e9:.3f} B "
+          f"params, {prompt_len}-token prompts: kernel vs plain "
+          f"max|dlogits|={err:.3g} (limit {1e-3 * scale:.3g} = "
+          f"1e-3*max|logits|), top-1 agreement {top1:.3f} over "
+          f"{a.shape[0] * a.shape[1]} positions, "
           f"{time.perf_counter() - t0:.1f} s")
     if err > 1e-3 * scale:
-        fail("full-width kernel path disagrees with the plain path")
-    del model, runs, a, b
+        fail(f"{arch}: full-width kernel path disagrees with the plain path")
+    del model, runs, a, b, cache
     torch.cuda.empty_cache()
 
 
-def run_main_path() -> dict:
-    """serve.main under sfs and cfs; returns launches per kernel."""
+SCHEDULE_KEYS = ("mean_turnaround", "median_turnaround", "p99_turnaround",
+                 "mean_rte", "total_ctx")
+
+
+def run_main_path(arch: str, policies) -> dict:
+    """serve.main on ``arch`` under each policy; returns launches per
+    kernel, summed over the policies."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import Transformer
-    n_layers = configs.get(ARCH).n_layers
+    from repro_torch.models.transformer import Transformer, n_shared_apps
+    cfg = configs.get(arch)
+    # kernel launches per prefill (ssd_scan, flash) and per decode step
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"dense": cfg.n_layers, "hybrid": n_shared_apps(cfg)}.get(
+        cfg.family, 0)
+    per = {"flash_attention": n_attn, "decode_attention": n_attn,
+           "ssd_scan": n_mamba}
     finite = []
     plain_logits = Transformer._logits
 
@@ -327,41 +487,60 @@ def run_main_path() -> dict:
         finite.append(torch.isfinite(logits).all())
         return logits
 
-    totals = {"flash_attention": 0, "decode_attention": 0}
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     Transformer._logits = checked_logits
     try:
-        for policy in ("sfs", "cfs"):
+        for policy in policies:
+            args = SERVE_ARGS + ["--arch", arch, "--policy", policy]
             finite.clear()
-            fk.launches = 0
-            dk.launches = 0
-            s = serve.main(SERVE_ARGS + ["--policy", policy])
-            n_flash, n_decode = fk.launches, dk.launches
+            fk.launches = dk.launches = sk.launches = 0
+            s = serve.main(args)
+            n = {"flash_attention": fk.launches,
+                 "decode_attention": dk.launches, "ssd_scan": sk.launches}
             ok = bool(torch.stack(finite).all()) if finite else False
-            print(f"[serve] {policy}: decode_tok_per_s="
-                  f"{s['decode_tok_per_s']:.1f} flash launches={n_flash} "
-                  f"decode launches={n_decode}")
+            synth = serve.main(args + ["--synthetic"])
+            same = all(s[k] == synth[k] for k in SCHEDULE_KEYS)
+            print(f"[serve] {arch} {policy}: decode_tok_per_s="
+                  f"{s['decode_tok_per_s']:.1f} wall_s={s['wall_s']:.3f} "
+                  f"ticks={s['ticks']} prefills={s['prefills']} "
+                  f"decode_steps={s['decode_steps']} launches {n}; "
+                  f"schedule == --synthetic run: {same}")
             if s["incomplete"] or s["n"] != 48:
-                fail(f"{policy}: {s['incomplete']} requests incomplete")
+                fail(f"{arch} {policy}: {s['incomplete']} requests "
+                     "incomplete")
             if not ok:
-                fail(f"{policy}: NaN or infinite logits")
-            if n_flash != s["prefills"] * n_layers or n_flash == 0:
-                fail(f"{policy}: {n_flash} flash launches for "
-                     f"{s['prefills']} prefills x {n_layers} layers")
-            if n_decode != s["decode_steps"] * n_layers or n_decode == 0:
-                fail(f"{policy}: {n_decode} decode launches for "
-                     f"{s['decode_steps']} decode steps x {n_layers} layers")
-            totals["flash_attention"] += n_flash
-            totals["decode_attention"] += n_decode
+                fail(f"{arch} {policy}: NaN or infinite logits")
+            calls = {"flash_attention": s["prefills"],
+                     "decode_attention": s["decode_steps"],
+                     "ssd_scan": s["prefills"]}
+            want = {k: calls[k] * per[k] for k in per}
+            if n != want:
+                fail(f"{arch} {policy}: launches {n}, expected {want} "
+                     f"({s['prefills']} prefills, {s['decode_steps']} "
+                     f"decode steps, {n_mamba} Mamba layers, {n_attn} "
+                     "attention layers)")
+            if any(per[k] and n[k] == 0 for k in per):
+                fail(f"{arch} {policy}: a kernel of the path never ran")
+            if not same:
+                fail(f"{arch} {policy}: schedule differs from the "
+                     "--synthetic run: " + ", ".join(
+                         f"{k} {s[k]} vs {synth[k]}" for k in SCHEDULE_KEYS))
+            for key in totals:
+                totals[key] += n[key]
     finally:
         Transformer._logits = plain_logits
     return totals
 
 
-def profile_main_path() -> None:
-    """Where the time goes: one profiled serving run (sfs, 16 requests,
-    after the main path has warmed the card), with the device's busy
-    share and the kernels by device time.  Profiling slows the host, so
-    the busy share is a lower bound.  Reports, never fails."""
+def profile_main_path(arch: str, n_requests: int) -> None:
+    """Where the time goes: one profiled serving run (sfs, after the main
+    path has warmed the card), with the device's busy share, device
+    operations per tick, the SSD kernels' share and the kernels by device
+    time.  Only the device's activity is traced: tracing the host's
+    operators as well records the same device operations but takes
+    several times as long to collect the events.  Profiling still slows
+    the host, so the busy share is a lower bound.  Reports, never
+    fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -369,17 +548,16 @@ def profile_main_path() -> None:
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import Engine, EngineConfig
-    cfg = configs.get(ARCH)
+    cfg = configs.get(arch)
     model = Transformer(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
     engine = Engine(EngineConfig(lanes=4, n_slots=32, max_len=192,
                                  policy="sfs"), model, device="cuda")
-    wl = serve.synth_workload(16, 4, 1.0, seed=1)
+    wl = serve.synth_workload(n_requests, 4, 1.0, seed=1)
     rng = np.random.default_rng(1)
     prompts = {r.rid: rng.integers(0, cfg.vocab, 8) for r in wl}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(wl, prompts=prompts)
         torch.cuda.synchronize()
@@ -387,15 +565,18 @@ def profile_main_path() -> None:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kernels) / 1e6
     ticks = engine.t
-    print(f"[profile] sfs 16 requests: {ticks} ticks, "
+    print(f"[profile] {arch} sfs {n_requests} requests: {ticks} ticks, "
           f"{engine.n_prefills} prefills, {engine.n_decode_steps} decode "
           f"steps, wall {wall:.3f} s ({1e3 * wall / ticks:.2f} ms/tick), "
           f"{len(kernels)} device ops ({len(kernels) / ticks:.0f}/tick)")
     if busy <= 0:
         print("[profile] no device activity traced: busy share not measured")
         return
+    ssd = sum(e.device_time_total for e in kernels
+              if "ssd_y_kernel" in e.name or "ssd_state_kernel" in e.name)
     print(f"[profile] device busy {busy:.3f} s = {100 * busy / wall:.1f}% "
-          f"of wall (idle {100 * (1 - busy / wall):.1f}%)")
+          f"of wall (idle {100 * (1 - busy / wall):.1f}%); ssd_scan "
+          f"{ssd / 1e3:.3f} ms = {100 * ssd / 1e6 / busy:.2f}% of busy")
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -624,23 +805,38 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {label}: {time.perf_counter() - t:.1f} s")
+        return out
     device_line()
-    build_kernels()
+    phase("build", build_kernels)
     gen = torch.Generator("cuda").manual_seed(0)
-    flash = check_flash(gen)
-    decode = check_decode(gen)
-    check_full_model()
-    launches = run_main_path()
-    profile_main_path()
-    pick = check_group_pick()
-    check_fleet_cpu_vs_cuda()
-    check_chaos()
-    launches["group_pick"] = run_fleet_main_path()
-    profile_fleet()
+    flash = phase("flash", check_flash, gen)
+    decode = phase("decode", check_decode, gen)
+    ssd = phase("ssd_scan", check_ssd, gen)
+    phase(f"{ARCH} full width", check_full_model, ARCH, 8, 192)
+    for arch in SSM_ARCHS:
+        phase(f"{arch} full width", check_full_model, arch, 300, 320)
+    launches = phase(f"{ARCH} serving", run_main_path, ARCH, ("sfs", "cfs"))
+    for arch in SSM_ARCHS:
+        for name, n in phase(f"{arch} serving", run_main_path, arch,
+                             ("sfs",)).items():
+            launches[name] += n
+    phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
+    phase(f"{SSM_ARCHS[0]} profile", profile_main_path, SSM_ARCHS[0], 8)
+    pick = phase("group_pick", check_group_pick)
+    phase("fleet 64x4", check_fleet_cpu_vs_cuda)
+    phase("chaos", check_chaos)
+    launches["group_pick"] = phase("fleet1024", run_fleet_main_path)
+    phase("fleet profile", profile_fleet)
     kernels = []
     for name, rec, line in (("flash_attention", flash, 71),
                             ("decode_attention", decode, 69),
-                            ("group_pick", pick, 55)):
+                            ("group_pick", pick, 55),
+                            ("ssd_scan", ssd, 53)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": f"src/repro/kernels/{name}/kernel.py:"

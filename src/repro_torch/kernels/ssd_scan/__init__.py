@@ -1,0 +1,3 @@
+from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+
+__all__ = ["ssd_intra_chunk"]

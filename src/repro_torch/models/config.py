@@ -17,8 +17,10 @@ imports the JAX package.  The knobs that only steered XLA on a TPU
 (chunk sizes, remat, layer scan, sharding, gradient accumulation) are
 left out.  ``attn_impl`` chooses between the plain PyTorch attention
 (``"dense"``) and the hand-written kernels (``"kernel"``, which fall back
-to their plain versions only for tensors on the CPU).  This slice of the
-port runs the dense family only.
+to their plain versions only for tensors on the CPU); for the ssm and
+hybrid families it also chooses the SSD intra-chunk step (the plain
+einsums, or the ``ssd_scan`` kernel).  The port runs the dense, ssm and
+hybrid families; moe, vlm and audio are not ported yet.
 """
 from __future__ import annotations
 

@@ -4,8 +4,11 @@
 already turned into numpy (``jax.tree.map(np.asarray, params)``), so the
 port never imports JAX.  The reference stacks layer params on a leading
 ``L`` axis and keeps weights as ``[in, out]``; ``nn.Linear`` keeps
-``[out, in]``.  The padded vocabulary, the separate ``lm_head`` and the
-fp32 norm scales carry over as they are.
+``[out, in]``.  The padded vocabulary, the separate ``lm_head``, the
+fp32 norm scales and the Mamba mixers' ``conv_w [W, ch]`` (the port's
+``_causal_conv`` reads it as the reference does), ``A_log``, ``dt_bias``
+and ``D`` carry over as they are.  The hybrid's shared block keeps the
+dense block's names under ``shared.``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,33 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _attn_block(sd: dict, prefix: str, p: dict, take, cfg: ModelConfig
+                ) -> None:
+    """One ``DecoderBlock``'s entries; ``take`` picks its slice of a
+    stacked leaf."""
+    sd[prefix + "ln1.scale"] = take(p["ln1"]["scale"])
+    sd[prefix + "ln2.scale"] = take(p["ln2"]["scale"])
+    attn = p["attn"]
+    for name in ("wq", "wk", "wv", "wo"):
+        sd[prefix + f"attn.{name}.weight"] = take(attn[name]).T
+    if cfg.qkv_bias:
+        for name in ("q", "k", "v"):
+            sd[prefix + f"attn.w{name}.bias"] = take(attn["b" + name])
+    for name in ("w_gate", "w_up", "w_down"):
+        sd[prefix + f"mlp.{name}.weight"] = take(p["mlp"][name]).T
+
+
+def _mamba_layer(sd: dict, prefix: str, p: dict, i: int) -> None:
+    """One ``MambaLayer``'s entries from layer ``i`` of the stack."""
+    m = p["mamba"]
+    sd[prefix + "ln.scale"] = p["ln"]["scale"][i]
+    sd[prefix + "mamba.in_proj.weight"] = m["in_proj"][i].T
+    sd[prefix + "mamba.out_proj.weight"] = m["out_proj"][i].T
+    for name in ("conv_w", "conv_b", "A_log", "dt_bias", "D"):
+        sd[prefix + f"mamba.{name}"] = m[name][i]
+    sd[prefix + "mamba.gate_norm.scale"] = m["gate_norm"]["scale"][i]
+
+
 def state_dict_from_jax(cfg: ModelConfig, np_params: dict) -> dict:
     """The ``Transformer.state_dict()`` equivalent of a reference tree."""
     sd = {"embed.weight": np_params["embed"],
@@ -31,17 +61,12 @@ def state_dict_from_jax(cfg: ModelConfig, np_params: dict) -> dict:
         sd["lm_head.weight"] = np.asarray(np_params["lm_head"]).T
     layers = np_params["layers"]
     for i in range(cfg.n_layers):
-        p = f"layers.{i}."
-        sd[p + "ln1.scale"] = layers["ln1"]["scale"][i]
-        sd[p + "ln2.scale"] = layers["ln2"]["scale"][i]
-        attn = layers["attn"]
-        for name in ("wq", "wk", "wv", "wo"):
-            sd[p + f"attn.{name}.weight"] = attn[name][i].T
-        if cfg.qkv_bias:
-            for name in ("q", "k", "v"):
-                sd[p + f"attn.w{name}.bias"] = attn["b" + name][i]
-        for name in ("w_gate", "w_up", "w_down"):
-            sd[p + f"mlp.{name}.weight"] = layers["mlp"][name][i].T
+        if cfg.family == "dense":
+            _attn_block(sd, f"layers.{i}.", layers, lambda a: a[i], cfg)
+        else:
+            _mamba_layer(sd, f"layers.{i}.", layers, i)
+    if cfg.family == "hybrid":
+        _attn_block(sd, "shared.", np_params["shared"], lambda a: a, cfg)
     return {k: _tensor(v) for k, v in sd.items()}
 
 

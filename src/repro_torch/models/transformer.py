@@ -1,11 +1,22 @@
-"""The dense decoder in PyTorch: prefill and cached decode for serving.
+"""The decoder in PyTorch: prefill and cached decode for serving.
 
-The port of the dense family of ``repro.models.transformer``.  Where the
-reference scans stacked layer params with ``lax.scan``, the port keeps one
-``DecoderBlock`` per layer in an ``nn.ModuleList`` and loops over them.
-The serving cache is a dict of tensors, ``{"pos": [B] int32,
-"k"/"v": [L, B, Smax, K, D]}``, that ``decode_step`` updates in place
-(the reference returns a new cache and donates the old one to XLA).
+The port of the dense, ssm and hybrid families of
+``repro.models.transformer``.  Where the reference scans stacked layer
+params with ``lax.scan``, the port keeps one module per layer in an
+``nn.ModuleList`` and loops over them:
+
+* dense  -- a ``DecoderBlock`` (GQA attention + gated MLP) per layer;
+* ssm    -- a ``MambaLayer`` (RMSNorm + Mamba2 mixer) per layer;
+* hybrid -- Mamba layers, with one ``DecoderBlock`` (``shared``, one set
+  of weights) applied after each run of ``attn_every`` of them; the
+  ``n_layers % attn_every`` layers left over run after the last
+  application (Zamba2).
+
+The serving cache is a dict of tensors, ``{"pos": [B] int32}`` plus, by
+family, ``"k"/"v": [L or n_apps, B, Smax, K, D]`` and ``"ssm_h": [L, B,
+H, P, N]`` (float32), ``"conv_tail": [L, B, W-1, ch]``; ``decode_step``
+updates it in place (the reference returns a new cache and donates the old
+one to XLA).
 
 Entry points, by the reference's names: ``init_params`` is the
 ``Transformer(cfg, device=, generator=)`` constructor (its
@@ -26,7 +37,17 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ModelConfig
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def n_shared_apps(cfg: ModelConfig) -> int:
+    """Hybrid: number of shared-attention applications."""
+    if cfg.family != "hybrid":
+        return 0
+    return cfg.n_layers // cfg.attn_every
 
 
 class DecoderBlock(nn.Module):
@@ -42,6 +63,13 @@ class DecoderBlock(nn.Module):
                                 cfg.qkv_bias, device, dtype)
         self.ln2 = L.RMSNorm(d, cfg.norm_eps, device)
         self.mlp = L.MLP(d, cfg.d_ff, cfg.activation, device, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        with torch.no_grad():
+            self.ln1.scale.fill_(1.0)
+            self.ln2.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 kv_cache: Optional[tuple] = None,
@@ -77,6 +105,42 @@ class DecoderBlock(nn.Module):
         return x, (k, v)
 
 
+class MambaLayer(nn.Module):
+    """One pre-norm Mamba2 layer (ssm and hybrid families)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.ln = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.mamba = M.MambaBlock(cfg.d_model, cfg.ssm, device, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.mamba.reset_parameters(generator)
+        with torch.no_grad():
+            self.ln.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, impl: str):
+        """Full sequence -> (x_out, decode state)."""
+        y, state = self.mamba(self.ln(x), impl)
+        return x + y.to(x.dtype), state
+
+    def step(self, x: torch.Tensor, h: torch.Tensor, tail: torch.Tensor):
+        """One token -> (x_out, new ssm state, new conv tail)."""
+        y, h, tail = self.mamba.step(self.ln(x), h, tail)
+        return x + y.to(x.dtype), h, tail
+
+
+def _keep_inactive(dst: torch.Tensor, new: torch.Tensor,
+                   active: Optional[torch.Tensor]) -> None:
+    """Write a decode step's recurrent state into ``dst`` ([B, ...]) in
+    place; rows whose ``active`` is False keep their old values bit for
+    bit (``torch.where``, no host synchronisation)."""
+    if active is None:
+        dst.copy_(new)
+    else:
+        sel = active.reshape((-1,) + (1,) * (dst.dim() - 1))
+        dst.copy_(torch.where(sel, new.to(dst.dtype), dst))
+
+
 def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
                pos: torch.Tensor) -> None:
     """Write one layer's new entries into its cache at per-sequence
@@ -93,7 +157,7 @@ def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """The dense decoder (``family == "dense"``).
+    """The decoder of the dense, ssm and hybrid families.
 
     Weights are drawn from ``generator`` (a seeded ``torch.Generator`` on
     ``device``; seed 0 if None) with the reference's distributions; the
@@ -104,17 +168,21 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet (ported: "
+                f"{', '.join(PORTED_FAMILIES)})")
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         V, d = cfg.vocab_padded, cfg.d_model
         self.embed = nn.utils.skip_init(nn.Embedding, V, d, device=dev,
                                         dtype=dtype)
-        self.layers = nn.ModuleList(DecoderBlock(cfg, dev, dtype)
+        layer = DecoderBlock if cfg.family == "dense" else MambaLayer
+        self.layers = nn.ModuleList(layer(cfg, dev, dtype)
                                     for _ in range(cfg.n_layers))
+        self.shared = (DecoderBlock(cfg, dev, dtype)
+                       if cfg.family == "hybrid" else None)
         self.final_norm = L.RMSNorm(d, cfg.norm_eps, dev)
         self.lm_head = (None if cfg.tie_embeddings
                         else L.linear(d, V, False, dev, dtype))
@@ -131,18 +199,39 @@ class Transformer(nn.Module):
         L.embed_init_(self.embed.weight, generator)
         if self.lm_head is not None:
             L.dense_init_(self.lm_head.weight, generator)
-        for blk in self.layers:
-            blk.attn.reset_parameters(generator)
-            blk.mlp.reset_parameters(generator)
-            blk.ln1.scale.fill_(1.0)
-            blk.ln2.scale.fill_(1.0)
+        for blk in self._blocks():
+            blk.reset_parameters(generator)
         self.final_norm.scale.fill_(1.0)
 
+    def _blocks(self) -> list:
+        """Every layer, then the hybrid's shared block."""
+        return list(self.layers) + ([] if self.shared is None
+                                    else [self.shared])
+
     def set_attn_impl(self, impl: str) -> None:
-        """Switch every block between "dense" and "kernel" attention."""
+        """Switch attention and the SSD step between "dense" (the plain
+        PyTorch versions) and "kernel"."""
         self.cfg = self.cfg.replace(attn_impl=impl)
-        for blk in self.layers:
-            blk.attn_impl = impl
+        for blk in self._blocks():
+            if isinstance(blk, DecoderBlock):
+                blk.attn_impl = impl
+
+    @property
+    def _ssd_impl(self) -> str:
+        return "kernel" if self.cfg.attn_impl == "kernel" else "plain"
+
+    def _segments(self):
+        """The Mamba layers in runs ``(first, end, app)``: layers
+        first..end-1, then the shared block's application ``app`` (None
+        for the run left over after the last application)."""
+        c = self.cfg
+        if c.family == "ssm":
+            return [(0, c.n_layers, None)]
+        k, napps = c.attn_every, n_shared_apps(c)
+        segs = [(a * k, (a + 1) * k, a) for a in range(napps)]
+        if napps * k < c.n_layers:
+            segs.append((napps * k, c.n_layers, None))
+        return segs
 
     # -- embedding / logits ------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -167,22 +256,44 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B,S] -> logits [B,S,V]."""
         x = self._embed(tokens)
-        cos, sin = self._rope(torch.arange(tokens.shape[1],
-                                           device=tokens.device)[None, :])
-        for blk in self.layers:
-            x, _ = blk(x, cos, sin)
+        if self.cfg.family != "ssm":
+            cos, sin = self._rope(torch.arange(tokens.shape[1],
+                                               device=tokens.device)[None, :])
+        if self.cfg.family == "dense":
+            for blk in self.layers:
+                x, _ = blk(x, cos, sin)
+            return self._logits(x)
+        for first, end, app in self._segments():
+            for i in range(first, end):
+                x, _ = self.layers[i](x, self._ssd_impl)
+            if app is not None:
+                x, _ = self.shared(x, cos, sin)
         return self._logits(x)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """An empty serving cache for ``batch_size`` sequences."""
         c = self.cfg
-        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.head_dim)
         dt = self.embed.weight.dtype
-        return {"pos": torch.zeros(batch_size, dtype=torch.int32,
-                                   device=self.device),
-                "k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        dev = self.device
+        cache = {"pos": torch.zeros(batch_size, dtype=torch.int32,
+                                    device=dev)}
+        if c.family in ("ssm", "hybrid"):
+            s = c.ssm
+            d_inner, H = M.ssm_dims(c.d_model, s)
+            conv_ch = d_inner + 2 * s.n_groups * s.d_state
+            cache["ssm_h"] = torch.zeros(
+                c.n_layers, batch_size, H, s.head_dim, s.d_state,
+                dtype=torch.float32, device=dev)
+            cache["conv_tail"] = torch.zeros(
+                c.n_layers, batch_size, s.conv_width - 1, conv_ch, dtype=dt,
+                device=dev)
+        if c.family != "ssm":
+            nl = n_shared_apps(c) if c.family == "hybrid" else c.n_layers
+            shape = (nl, batch_size, max_len, c.n_kv_heads, c.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        return cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int):
@@ -190,13 +301,26 @@ class Transformer(nn.Module):
         (cache padded to max_len, last-position logits [B,1,V])."""
         B, S = tokens.shape
         x = self._embed(tokens)
-        cos, sin = self._rope(torch.arange(S, device=tokens.device)[None, :])
         cache = self.init_cache(B, max_len)
         cache["pos"].fill_(S)
-        for i, blk in enumerate(self.layers):
-            x, (k, v) = blk(x, cos, sin)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+        if self.cfg.family != "ssm":
+            cos, sin = self._rope(torch.arange(S,
+                                               device=tokens.device)[None, :])
+        if self.cfg.family == "dense":
+            for i, blk in enumerate(self.layers):
+                x, (k, v) = blk(x, cos, sin)
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+            return cache, self._logits(x[:, -1:, :])
+        for first, end, app in self._segments():
+            for i in range(first, end):
+                x, st = self.layers[i](x, self._ssd_impl)
+                cache["ssm_h"][i] = st["h"]
+                cache["conv_tail"][i] = st["conv_tail"]
+            if app is not None:
+                x, (k, v) = self.shared(x, cos, sin)
+                cache["k"][app, :, :S] = k
+                cache["v"][app, :, :S] = v
         return cache, self._logits(x[:, -1:, :])
 
     @torch.no_grad()
@@ -206,21 +330,38 @@ class Transformer(nn.Module):
 
         Updates ``cache`` in place and returns it.  ``active`` ([B] bool)
         supports continuous batching: inactive slots do not advance their
-        position (the KV written at their frozen position is overwritten
-        when the slot resumes, so attention never reads it).
+        position and keep their SSM state and conv tail bit for bit (the
+        KV written at their frozen position is overwritten when the slot
+        resumes, so attention never reads it).
         """
         if tokens.dim() == 1:
             tokens = tokens[:, None]
         pos = cache["pos"]
         x = self._embed(tokens)
-        cos, sin = self._rope(pos[:, None])
-        for i, blk in enumerate(self.layers):
-            x, (k, v) = blk(x, cos, sin, kv_cache=(cache["k"][i],
-                                                   cache["v"][i]),
-                            cache_pos=pos)
-            # this layer's attention is done: commit its entries now
-            _commit_kv(cache["k"][i], k, pos)
-            _commit_kv(cache["v"][i], v, pos)
+        if self.cfg.family != "ssm":
+            cos, sin = self._rope(pos[:, None])
+        if self.cfg.family == "dense":
+            for i, blk in enumerate(self.layers):
+                x, (k, v) = blk(x, cos, sin, kv_cache=(cache["k"][i],
+                                                       cache["v"][i]),
+                                cache_pos=pos)
+                # this layer's attention is done: commit its entries now
+                _commit_kv(cache["k"][i], k, pos)
+                _commit_kv(cache["v"][i], v, pos)
+        else:
+            for first, end, app in self._segments():
+                for i in range(first, end):
+                    x, h, tail = self.layers[i].step(
+                        x, cache["ssm_h"][i], cache["conv_tail"][i])
+                    _keep_inactive(cache["ssm_h"][i], h, active)
+                    _keep_inactive(cache["conv_tail"][i], tail, active)
+                if app is not None:
+                    x, (k, v) = self.shared(
+                        x, cos, sin, kv_cache=(cache["k"][app],
+                                               cache["v"][app]),
+                        cache_pos=pos)
+                    _commit_kv(cache["k"][app], k, pos)
+                    _commit_kv(cache["v"][app], v, pos)
         if active is None:
             pos.add_(1)
         else:

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import transformer as T  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.models.config import MoEConfig  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import Transformer, _commit_kv  # noqa: E402
 
@@ -194,6 +195,11 @@ def test_random_init_is_seeded_and_scaled():
 
 
 def test_only_the_dense_family_is_ported():
-    cfg = port_cfg().replace(family="audio")
-    with pytest.raises(NotImplementedError):
-        Transformer(cfg, device="cpu")
+    """Of the families, dense, ssm and hybrid are ported (the last two in
+    tests/test_torch_mamba.py); moe, vlm and audio still raise."""
+    for family in ("moe", "vlm", "audio"):
+        kw = dict(family=family)
+        if family == "moe":
+            kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)
+        with pytest.raises(NotImplementedError, match=family):
+            Transformer(port_cfg(**kw), device="cpu")

@@ -1,9 +1,11 @@
 """The port's serving engine against repro.serving.Engine on the CPU.
 
 Synthetic mode must reproduce the reference's schedule tick for tick;
-model mode (reduced qwen2.5-3b, float32, the reference's weights) must
-also produce the same greedy token stream.
+model mode (reduced qwen2.5-3b, mamba2-1.3b and zamba2-1.2b, float32, the
+reference's weights) must also produce the same greedy token stream.
 """
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -70,14 +72,14 @@ def record_tokens(engine, log):
     engine._run_decode = wrapped
 
 
-@pytest.mark.parametrize("policy", ["sfs", "cfs"])
-def test_model_mode_tokens_match_reference(policy):
-    cfg_r = ref_configs.get_reduced("qwen2.5-3b").replace(dtype="float32")
-    cfg_p = configs.get_reduced("qwen2.5-3b").replace(dtype="float32")
-    params = T.init_params(cfg_r, jax.random.PRNGKey(0))
+def model_mode_matches_reference(arch, policy, lens):
+    """Run the port's and the reference's engines in model mode on the
+    same workload and weights: equal schedules and greedy tokens."""
+    cfg_r = ref_configs.get_reduced(arch).replace(dtype="float32")
+    cfg_p = configs.get_reduced(arch).replace(dtype="float32")
+    params = jax.jit(partial(T.init_params, cfg_r))(jax.random.PRNGKey(0))
     model = params_from_jax(cfg_p, jax.tree.map(np.asarray, params),
                             device="cpu")
-    lens = (3, 6)
     rng = np.random.default_rng(1)
     wl_r = workload(RefRequest, n=8, lanes=2, seed=2, prompt_lens=lens)
     for r in wl_r:
@@ -99,6 +101,19 @@ def test_model_mode_tokens_match_reference(policy):
     assert sum(len(t) for _, t in toks_p) == sum(r.n_tokens for r in wl_p)
     assert toks_p == toks_r
     assert port.n_prefills == len(wl_p)
+
+
+@pytest.mark.parametrize("policy", ["sfs", "cfs"])
+def test_model_mode_tokens_match_reference(policy):
+    model_mode_matches_reference("qwen2.5-3b", policy, lens=(3, 6))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_model_mode_ssm_hybrid_tokens_match_reference(arch):
+    """The recurrent state and conv tail travel through the slot copy
+    and the frozen-slot decode like the reference's, down to the greedy
+    tokens; a 2-token prompt is shorter than the conv tail."""
+    model_mode_matches_reference(arch, "sfs", lens=(2, 6))
 
 
 def test_one_device_to_host_copy_per_tick(monkeypatch):
@@ -124,6 +139,14 @@ def test_serve_main_runs_on_cpu():
                     "sfs", "--slots", "4", "--max-len", "160"])
     assert s["n"] == 6 and s["incomplete"] == 0
     assert s["prefills"] == 6 and s["decode_steps"] > 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_serve_main_runs_ssm_and_hybrid_on_cpu(arch):
+    s = serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
+                    "--policy", "sfs", "--slots", "4", "--max-len", "160"])
+    assert s["n"] == 4 and s["incomplete"] == 0
+    assert s["prefills"] == 4 and s["decode_steps"] > 0
 
 
 def test_serve_replicas_not_ported():
