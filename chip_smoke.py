@@ -11,9 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sm_90a, all at once (ptxas report printed);
 3. each attention kernel against its plain PyTorch version on the card,
    in float32 (atol = rtol = 2e-5) and bfloat16 (2e-2), at qwen2.5-3b's
-   and zamba2-1.2b's shapes among others, with kernel, plain and
-   library-call times and the kernel's bound; the ssd_scan kernel against
-   its plain version (float32 atol 3e-5 / rtol 3e-4, bfloat16 x 3e-2) at
+   and zamba2-1.2b's shapes among others (flash: every head dim of the
+   bfloat16 tensor-core kernel and of the float32 one, causal and not,
+   ragged tiles; decode: head dims 16 to 128, kv_len 0 in some rows, with
+   and without the in-flight entry, a short cache and a long one); with
+   kernel, plain and library-call (SDPA) times by CUDA events, kernel and
+   SDPA device-only times (torch.profiler) and the kernel's bound; the
+   ssd_scan kernel against its plain version (float32 atol 3e-5 / rtol 3e-4, bfloat16 x 3e-2) at
    the serving prefill's shape, a full 256-step chunk, zamba2's d_state,
    an odd head count, a strongly decaying state and a dt = 0 tail (which
    must add exactly nothing), with kernel, plain and two-einsum times and
@@ -34,10 +38,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    P99 turnaround, mean RTE, context switches) equals a ``--synthetic``
    run's with the same arguments;
 6. where the time goes: one more serving run of qwen2.5-3b (16
-   requests) and one of mamba2-1.3b (8 requests) under torch.profiler
-   (device activity only), with the card's busy share, device operations
-   per tick, ssd_scan's share and the kernels by device time (reported
-   only);
+   requests) and one each of mamba2-1.3b and zamba2-1.2b (8 requests)
+   under torch.profiler (device activity only), with the card's busy
+   share, device operations per tick, the port's kernels' shares and the
+   kernels by device time (reported only);
 7. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 1024,
    4096} and kmax in {1, 4, 8}, with heavy vruntime ties, ~30% empty
@@ -133,11 +137,14 @@ def build_kernels() -> None:
         entry, rows = "?", []
         for ln in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"entry function '\w*?\d+(flash_fwd_kernel|"
-                          r"decode_kernel|ssd_y_kernel|ssd_state_kernel)"
+                          r"flash_mma_kernel|decode_mma_kernel|"
+                          r"decode_fma_kernel|"
+                          r"ssd_y_kernel|ssd_state_kernel)"
                           r"I(\w+?)E[Ev]", ln)
-            if m:       # mangled template arguments: f / bf16, Li<D>
+            if m:       # mangled template arguments: f / bf16, Li<D>, Lb<b>
                 args = re.sub(r"^f(?=L|$)", "f32", m.group(2).replace(
-                    "13__nv_bfloat16", "bf16")).replace("Li", ",")
+                    "13__nv_bfloat16", "bf16"))
+                args = re.sub(r"L[ib]", ",", args).lstrip(",")
                 entry = f"{m.group(1)}<{args}>"
             elif "entry function" in ln and "group_pick_kernel" in ln:
                 entry = "group_pick_kernel"
@@ -164,6 +171,24 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device-only time of one call: the durations of the kernels it
+    launches, traced by torch.profiler (device activity only), without
+    the host's launch gaps between them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -201,8 +226,13 @@ def check_flash(gen) -> dict:
              ("gqa", 2, 256, 16, 4, 64, True, "bfloat16", False),
              ("noncausal", 2, 200, 8, 8, 80, False, "float32", False),
              ("noncausal", 2, 200, 8, 8, 80, False, "bfloat16", False),
+             ("d80causal", 1, 300, 16, 2, 80, True, "bfloat16", False),
+             ("d80causal", 1, 300, 16, 2, 80, True, "float32", False),
              ("d32", 2, 96, 4, 1, 32, True, "float32", False),
-             ("d16", 1, 130, 4, 2, 16, False, "bfloat16", False)]
+             ("d32", 2, 96, 4, 1, 32, True, "bfloat16", False),
+             ("d16", 1, 130, 4, 2, 16, False, "bfloat16", False),
+             ("d16causal", 1, 77, 4, 2, 16, True, "bfloat16", False),
+             ("d16causal", 1, 77, 4, 2, 16, True, "float32", False)]
     main = None
     for label, B, S, H, K, D, causal, dtype, timed in cases:
         dt = getattr(torch, dtype)
@@ -217,22 +247,30 @@ def check_flash(gen) -> dict:
                 f"causal={causal} {dtype}: max_abs_err={err:.3g}")
         if timed:
             iters = 200 if S <= 256 else 20
-            ms = time_ms(lambda: fk.flash_attention_cuda(
-                q, k, v, causal=causal), iters)
+
+            def kern():
+                return fk.flash_attention_cuda(q, k, v, causal=causal)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            ms = time_ms(kern, iters)
             plain = time_ms(lambda: flash_attention_ref(
                 q, k, v, causal=causal), iters)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+            lib = time_ms(sdpa, iters)
+            dev, lib_dev = device_ms(kern, iters), device_ms(sdpa, iters)
             el = q.element_size()
             nbytes = 2 * q.numel() * el + 2 * k.numel() * el
             pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
             b_ms, b_by = bound(nbytes, 4 * pairs * D, dtype)
-            line += (f" ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f}"
+            line += (f" ms={ms:.4f} device_ms={dev:.5f} plain_ms={plain:.4f}"
+                     f" sdpa_ms={lib:.4f} sdpa_device_ms={lib_dev:.5f}"
                      f" bound_ms={b_ms:.6f} ({b_by})")
             if label == "main":
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                main = dict(max_abs_err=err, ms=ms, device_ms=dev,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib, library_device_ms=lib_dev,
                             shape=f"B={B} S={S} H={H} K={K} D={D} causal "
                                   f"{dtype}")
         print(line)
@@ -241,14 +279,28 @@ def check_flash(gen) -> dict:
 
 def check_decode(gen) -> dict:
     """Kernel vs plain at qwen2.5-3b's decode shape (timed; returns its
-    record) and at zamba2-1.2b's (timed and printed)."""
+    record), zamba2-1.2b's (timed and printed), a long cache with few
+    sequences (timed and printed: B * K blocks leave most SMs idle there,
+    the case a split of the prefix would serve) and small shapes: head
+    dims 16 to 80 (36 and 40 take the FMA kernel in bfloat16 too), 1 to 16
+    query heads per kv head, a short cache.  Every shape has an empty, a
+    full and a one-row prefix."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    B, Smax = 32, 192
+    # (label, B, Smax, H, K, D, timed)
+    cases = [("main", 32, 192, 16, 2, 128, True),
+             ("zamba2", 32, 192, 32, 32, 64, True),
+             ("long", 6, 4096, 16, 2, 128, True),
+             ("d80", 8, 130, 8, 2, 80, False),
+             ("d40", 8, 130, 8, 2, 40, False),
+             ("d36", 8, 130, 8, 2, 36, False),
+             ("d32", 8, 70, 4, 1, 32, False),
+             ("d16", 8, 70, 32, 2, 16, False),
+             ("short", 8, 48, 16, 2, 128, False)]
     main = None
-    for label, H, K, D in (("main", 16, 2, 128), ("zamba2", 32, 32, 64)):
+    for label, B, Smax, H, K, D, timed in cases:
         lens = torch.randint(1, Smax + 1, (B,), generator=gen, device="cuda")
         lens[0], lens[1], lens[2] = 0, Smax, 1
         kv_len = lens.to(torch.int32)
@@ -265,31 +317,42 @@ def check_decode(gen) -> dict:
                 args = (q, kc, vc, kv_len) + ((kn, vn) if extra else ())
                 out = dk.decode_attention_cuda(*args)
                 torch.cuda.synchronize()
-                err = compare(f"decode {label} extra={extra} {dtype}", out,
-                              decode_attention_ref(*args), dtype)
+                what = f"decode {label} extra={extra} {dtype}"
+                err = compare(what, out, decode_attention_ref(*args), dtype)
+                if not extra and not out[0].eq(0).all():
+                    fail(f"{what}: kv_len = 0 without the in-flight entry "
+                         "must give zeros")
                 line = (f"[decode] {label:6s} B={B} Smax={Smax} H={H} K={K} "
                         f"D={D} extra={extra} {dtype}: max_abs_err={err:.3g}")
-                if dtype == "bfloat16" and extra:
-                    ms = time_ms(lambda: dk.decode_attention_cuda(*args), 500)
-                    plain = time_ms(lambda: decode_attention_ref(*args), 200)
+                if timed and dtype == "bfloat16" and extra:
+                    def kern():
+                        return dk.decode_attention_cuda(*args)
                     mask = (torch.arange(Smax, device="cuda")[None, :]
                             < kv_len[:, None])[:, None, None, :]
                     qt = q[:, :, None, :]
                     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                    ms = time_ms(kern, 500)
+                    plain = time_ms(lambda: decode_attention_ref(*args), 200)
+                    lib = time_ms(sdpa, 200)
+                    dev, lib_dev = device_ms(kern, 200), device_ms(sdpa, 200)
                     el = q.element_size()
                     n = kv_len.clamp(0, Smax).sum().item()
                     nbytes = (2 * q.numel() * el + kv_len.numel() * 4
                               + 2 * n * K * D * el + 2 * kn.numel() * el)
                     b_ms, b_by = bound(nbytes, 4 * H * D * (n + B), dtype)
-                    line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
-                             f"sdpa_ms={lib:.4f} bound_ms={b_ms:.6f} "
-                             f"({b_by})")
+                    line += (f" ms={ms:.4f} device_ms={dev:.5f} "
+                             f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+                             f"sdpa_device_ms={lib_dev:.5f} "
+                             f"bound_ms={b_ms:.6f} ({b_by})")
                     if label == "main":
-                        main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                    bound_ms=b_ms, bound_by=b_by,
-                                    library_ms=lib,
+                        main = dict(max_abs_err=err, ms=ms, device_ms=dev,
+                                    plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib,
+                                    library_device_ms=lib_dev,
                                     shape=f"B={B} Smax={Smax} H={H} K={K} "
                                           f"D={D} ragged kv_len + in-flight "
                                           f"entry {dtype}")
@@ -377,8 +440,9 @@ def check_ssd(gen) -> dict:
                 line += " (dt = 0 steps add exactly 0)"
             if timed and dtype == "float32":
                 iters = 500 if Q <= 64 else 50
-                ms = time_ms(lambda: sk.ssd_intra_chunk_cuda(
-                    x, dtc, cum, tot, Bc, Cc), iters)
+                def kern():
+                    return sk.ssd_intra_chunk_cuda(x, dtc, cum, tot, Bc, Cc)
+                ms, dev = time_ms(kern, iters), device_ms(kern, iters)
                 plain = time_ms(lambda: ssd_intra_chunk_ref(
                     x, dtc, cum, tot, Bc, Cc), max(iters // 5, 10))
                 # context only: the two contractions of the plain version
@@ -390,12 +454,13 @@ def check_ssd(gen) -> dict:
                     torch.einsum("bcqhn,bcqhp->bchpn", wB, x)),
                     max(iters // 5, 10))
                 b_ms, b_by = bound(*ssd_work(b, nc, Q, H, P, N, 4), dtype)
-                line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
+                line += (f" ms={ms:.4f} device_ms={dev:.5f} "
+                         f"plain_ms={plain:.4f} "
                          f"two_einsum_ms={two:.4f} bound_ms={b_ms:.6f} "
                          f"({b_by})")
                 if label == "main":
-                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by,
+                    main = dict(max_abs_err=err, ms=ms, device_ms=dev,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None,
                                 shape=f"{shape} float32 (mamba2-1.3b "
                                       "prefill of 8 tokens)")
@@ -535,8 +600,8 @@ def run_main_path(arch: str, policies) -> dict:
 def profile_main_path(arch: str, n_requests: int) -> None:
     """Where the time goes: one profiled serving run (sfs, after the main
     path has warmed the card), with the device's busy share, device
-    operations per tick, the SSD kernels' share and the kernels by device
-    time.  Only the device's activity is traced: tracing the host's
+    operations per tick, the port's kernels' shares and the kernels by
+    device time.  Only the device's activity is traced: tracing the host's
     operators as well records the same device operations but takes
     several times as long to collect the events.  Profiling still slows
     the host, so the busy share is a lower bound.  Reports, never
@@ -572,11 +637,19 @@ def profile_main_path(arch: str, n_requests: int) -> None:
     if busy <= 0:
         print("[profile] no device activity traced: busy share not measured")
         return
-    ssd = sum(e.device_time_total for e in kernels
-              if "ssd_y_kernel" in e.name or "ssd_state_kernel" in e.name)
     print(f"[profile] device busy {busy:.3f} s = {100 * busy / wall:.1f}% "
-          f"of wall (idle {100 * (1 - busy / wall):.1f}%); ssd_scan "
-          f"{ssd / 1e3:.3f} ms = {100 * ssd / 1e6 / busy:.2f}% of busy")
+          f"of wall (idle {100 * (1 - busy / wall):.1f}%), "
+          f"{1e3 * busy / ticks:.3f} ms of device time per tick")
+    for kernel, names in (("decode_attention", ("decode_mma_kernel",
+                                                "decode_fma_kernel")),
+                          ("flash_attention", ("flash_mma_kernel",
+                                               "flash_fwd_kernel")),
+                          ("ssd_scan", ("ssd_y_kernel", "ssd_state_kernel"))):
+        t = sum(e.device_time_total for e in kernels
+                if any(n in e.name for n in names)) / 1e3
+        print(f"[profile]   {kernel}: {t:.3f} ms = "
+              f"{100 * t / 1e3 / busy:.2f}% of busy, {t / ticks:.4f} ms "
+              "per tick")
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -636,6 +709,7 @@ def check_group_pick() -> dict:
     G, cap, kmax = FLEET["engines"], 32, FLEET["lanes"]
     vr, rid = pick_inputs(rng, G, cap, kmax)
     ms = time_ms(lambda: gk.pick_order_cuda(vr, rid, kmax), 2000)
+    dev = device_ms(lambda: gk.pick_order_cuda(vr, rid, kmax), 500)
     plain = time_ms(lambda: pick_order_ref(vr, rid, kmax), 200)
 
     def sort_pair():          # two stable sorts, as pick_order_ref of the
@@ -648,11 +722,12 @@ def check_group_pick() -> dict:
     b_ms, b_by = bound(nbytes, 0, "float32")
     print(f"[pick] {n_cases} cases equal (G in 1,7,1024; CAP in 32,33,64,"
           f"1024,4096; kmax in 1,4,8); G={G} CAP={cap} kmax={kmax}: "
-          f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={b_ms:.7f} ({b_by}) "
+          f"ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
+          f"bound_ms={b_ms:.7f} ({b_by}) "
           f"sort_pair_ms={sorts:.5f} (context only: two stable sorts, "
           "which differ from the kernel on the tail columns)")
-    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+    return dict(max_abs_err=float(err), ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"G={G} CAP={cap} kmax={kmax} int32")
 
 
@@ -826,7 +901,8 @@ def main() -> int:
                              ("sfs",)).items():
             launches[name] += n
     phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
-    phase(f"{SSM_ARCHS[0]} profile", profile_main_path, SSM_ARCHS[0], 8)
+    for arch in SSM_ARCHS:
+        phase(f"{arch} profile", profile_main_path, arch, 8)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)
     phase("chaos", check_chaos)

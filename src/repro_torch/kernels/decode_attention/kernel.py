@@ -1,7 +1,11 @@
 """Launch wrapper of the decode-attention CUDA kernel
 (``csrc/decode_attention.cu``), which replaces the TPU kernel
 ``repro.kernels.decode_attention.kernel.decode_attention_pallas`` and
-adds the in-flight entry the model's decode needs."""
+adds the in-flight entry the model's decode needs: bfloat16 with a head
+dim in {16, 32, 64, 80, 128} runs on the tensor cores
+(``decode_mma_kernel``), anything else on the FMA units
+(``decode_fma_kernel``), one block per (kv head, sequence) and one launch
+either way."""
 from __future__ import annotations
 
 import ctypes

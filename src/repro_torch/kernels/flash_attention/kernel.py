@@ -1,6 +1,8 @@
 """Launch wrapper of the flash-attention CUDA kernel
 (``csrc/flash_attention.cu``), which replaces the TPU kernel
-``repro.kernels.flash_attention.kernel.flash_attention_pallas``."""
+``repro.kernels.flash_attention.kernel.flash_attention_pallas``: bfloat16
+runs on the tensor cores (``flash_mma_kernel``), float32 on the FMA units
+(``flash_fwd_kernel``), one launch either way."""
 from __future__ import annotations
 
 import ctypes
@@ -47,6 +49,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, K = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    # the bfloat16 kernel (tensor cores) copies rows in 16-byte pieces
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k, v must start on 16-byte "
+                         "boundaries")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
