@@ -17,11 +17,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and without the in-flight entry, a short cache and a long one); with
    kernel, plain and library-call (SDPA) times by CUDA events, kernel and
    SDPA device-only times (torch.profiler) and the kernel's bound; the
-   ssd_scan kernel against its plain version (float32 atol 3e-5 / rtol 3e-4, bfloat16 x 3e-2) at
-   the serving prefill's shape, a full 256-step chunk, zamba2's d_state,
-   an odd head count, a strongly decaying state and a dt = 0 tail (which
-   must add exactly nothing), with kernel, plain and two-einsum times and
-   the bound;
+   ssd_scan kernel against its plain version (float32 atol 3e-5 / rtol
+   3e-4, bfloat16 x 3e-2) at the serving prefill's shape, a full 256-step
+   chunk, zamba2's d_state, an odd head count, a strongly decaying state,
+   a dt = 0 tail (which must add exactly nothing), a chunk past one
+   128-step segment of S, P = 128 and a ragged Q <= 16 with P and N not
+   multiples of 4, with kernel, plain and two-einsum times, the bound
+   (contractions at the TF32 tensor-core rate, three products each) and
+   the all-float32-FMA bound of the first version;
 4. qwen2.5-3b at full width, random weights from a seed, in float32: an
    8-token prefill of 4 prompts and 3 decode steps through the kernels
    and through the plain attention; the logits must agree within
@@ -41,12 +44,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    requests) and one each of mamba2-1.3b and zamba2-1.2b (8 requests)
    under torch.profiler (device activity only), with the card's busy
    share, device operations per tick, the port's kernels' shares and the
-   kernels by device time (reported only);
+   kernels by device time (reported; a Mamba model fails if no ssd_scan
+   device time is traced or not one kernel per launch);
 7. the group_pick kernel against its plain version on the card, exact
-   integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 1024,
-   4096} and kmax in {1, 4, 8}, with heavy vruntime ties, ~30% empty
-   slots, an empty row and rows with fewer keys than kmax; kernel, plain
-   and sort-pair times and the bound at the fleet shape;
+   integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 100,
+   256, 1024, 4096} (both variants, every register width) and kmax in
+   {1, 4, 8, 40}, with heavy vruntime ties, ~30% empty slots, an empty
+   row and rows with fewer keys than kmax; kernel, plain and sort-pair
+   times, the bound and the empty-launch floor (a one-element PyTorch
+   kernel's device time) at the fleet shape; with ``--old-csrc DIR``, an
+   earlier ssd_scan.cu and group_pick.cu from DIR built and timed against
+   the present ones in turns (old, new, new, old) on the same inputs;
 8. the fleet backend at 64 engines x 4 lanes (250 requests, sfs-aware,
    history predictor): the CUDA run equals the port's own CPU run in
    every per-request field, the dispatch counts, the ETA log and the
@@ -85,6 +93,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the SSD step's tolerances, as tests/test_kernels.py holds the TPU kernel
 SSD_TOL = {"float32": dict(atol=3e-5, rtol=3e-4),
@@ -138,16 +147,16 @@ def build_kernels() -> None:
         for ln in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"entry function '\w*?\d+(flash_fwd_kernel|"
                           r"flash_mma_kernel|decode_mma_kernel|"
-                          r"decode_fma_kernel|"
-                          r"ssd_y_kernel|ssd_state_kernel)"
+                          r"decode_fma_kernel|ssd_scan_kernel|"
+                          r"group_pick_reg_kernel)"
                           r"I(\w+?)E[Ev]", ln)
-            if m:       # mangled template arguments: f / bf16, Li<D>, Lb<b>
+            if m:       # mangled template arguments: f / bf16, Li<n>E, Lb<b>E
                 args = re.sub(r"^f(?=L|$)", "f32", m.group(2).replace(
                     "13__nv_bfloat16", "bf16"))
-                args = re.sub(r"L[ib]", ",", args).lstrip(",")
+                args = re.sub(r"L[ib](\d+)E?", r",\1", args).lstrip(",")
                 entry = f"{m.group(1)}<{args}>"
-            elif "entry function" in ln and "group_pick_kernel" in ln:
-                entry = "group_pick_kernel"
+            elif "entry function" in ln and "group_pick_smem_kernel" in ln:
+                entry = "group_pick_smem_kernel"
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m:
                 spill = m.group(1)
@@ -383,17 +392,32 @@ def ssd_inputs(gen, b, nc, Q, H, P, N, decay=1.0, dt_zero_from=None):
 
 
 def ssd_work(b, nc, Q, H, P, N, x_bytes: int):
-    """(bytes moved, operations) of the intra-chunk step: each input read
-    once, each output written once; C.B once per chunk (one group shared
-    by all heads), then per head the masked decay weights, w.x and the
-    state's outer-product sum."""
+    """(bytes moved, contraction operations, elementwise operations) of
+    the intra-chunk step: each input read once, each output written once;
+    the contractions are C.B once per chunk (one group shared by all
+    heads), then per head w.x and the state's outer-product sum; the
+    elementwise part is per head the masked decay weights of each pair
+    and the decay to the chunk's end of each step."""
     pairs = Q * (Q + 1) // 2
     nbytes = (b * nc * (Q * H * P * x_bytes + 2 * Q * H * 4 + H * 4
                         + 2 * Q * N * 4)
               + b * nc * (Q * H * P + H * P * N) * 4)
-    flops = b * nc * (2 * pairs * N
-                      + H * (pairs * (3 + 2 * P) + Q * (3 + 2 * P * N)))
-    return nbytes, flops
+    mma = b * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
+    ew = b * nc * H * (3 * pairs + 3 * Q)
+    return nbytes, mma, ew
+
+
+def ssd_bounds(b, nc, Q, H, P, N, x_bytes: int = 4):
+    """(bound ms, by) of the kernel as it runs, and the f32-FMA bound of
+    its first version (everything at the float32 rate), for continuity.
+    The contractions run as three TF32 products each (the hi/lo split) at
+    the TF32 tensor-core peak, the rest at the float32 peak; the two
+    times add."""
+    nbytes, mma, ew = ssd_work(b, nc, Q, H, P, N, x_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * mma / PEAK_TF32 + ew / PEAK_FLOPS["float32"]) * 1e3
+    now = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return now, bound(nbytes, mma + ew, "float32")
 
 
 def check_ssd(gen) -> dict:
@@ -411,7 +435,12 @@ def check_ssd(gen) -> dict:
              ("small", 1, 3, 64, 8, 32, 16, {}, False),
              ("decay", 1, 2, 256, 16, 64, 128, {"decay": 100.0}, False),
              ("dt0tail", 1, 1, 256, 16, 64, 128, {"dt_zero_from": 200},
-              False)]
+              False),
+             # three 128-step segments of S; P = 128; ragged Q <= 16
+             # with P and N not multiples of 4 (4-byte copies and stores)
+             ("long", 1, 1, 300, 8, 64, 128, {}, False),
+             ("p128", 1, 2, 40, 4, 128, 32, {}, False),
+             ("ragged", 2, 1, 12, 5, 30, 7, {}, False)]
     main, err_max = None, 0.0
     for label, b, nc, Q, H, P, N, opts, timed in cases:
         xc, dtc, cum, tot, Bc, Cc = ssd_inputs(gen, b, nc, Q, H, P, N,
@@ -453,15 +482,15 @@ def check_ssd(gen) -> dict:
                     torch.einsum("bclmh,bcmhp->bclhp", pairs_w, x),
                     torch.einsum("bcqhn,bcqhp->bchpn", wB, x)),
                     max(iters // 5, 10))
-                b_ms, b_by = bound(*ssd_work(b, nc, Q, H, P, N, 4), dtype)
+                (b_ms, b_by), (o_ms, o_by) = ssd_bounds(b, nc, Q, H, P, N)
                 line += (f" ms={ms:.4f} device_ms={dev:.5f} "
                          f"plain_ms={plain:.4f} "
                          f"two_einsum_ms={two:.4f} bound_ms={b_ms:.6f} "
-                         f"({b_by})")
+                         f"({b_by}; f32-FMA bound {o_ms:.6f}, {o_by})")
                 if label == "main":
                     main = dict(max_abs_err=err, ms=ms, device_ms=dev,
                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None,
+                                f32_fma_bound_ms=o_ms, library_ms=None,
                                 shape=f"{shape} float32 (mamba2-1.3b "
                                       "prefill of 8 tokens)")
             print(line)
@@ -604,16 +633,19 @@ def profile_main_path(arch: str, n_requests: int) -> None:
     device time.  Only the device's activity is traced: tracing the host's
     operators as well records the same device operations but takes
     several times as long to collect the events.  Profiling still slows
-    the host, so the busy share is a lower bound.  Reports, never
-    fails."""
+    the host, so the busy share is a lower bound.  Reports; fails only
+    for a model with Mamba layers whose profile shows no ssd_scan device
+    time, or not one traced ssd_scan kernel per launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import Engine, EngineConfig
     cfg = configs.get(arch)
+    has_ssd = cfg.family in ("ssm", "hybrid")
     model = Transformer(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
     engine = Engine(EngineConfig(lanes=4, n_slots=32, max_len=192,
@@ -622,11 +654,13 @@ def profile_main_path(arch: str, n_requests: int) -> None:
     rng = np.random.default_rng(1)
     prompts = {r.rid: rng.integers(0, cfg.vocab, 8) for r in wl}
     torch.cuda.synchronize()
+    sk.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(wl, prompts=prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ssd_launches = sk.launches
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kernels) / 1e6
     ticks = engine.t
@@ -636,6 +670,8 @@ def profile_main_path(arch: str, n_requests: int) -> None:
           f"{len(kernels)} device ops ({len(kernels) / ticks:.0f}/tick)")
     if busy <= 0:
         print("[profile] no device activity traced: busy share not measured")
+        if has_ssd:
+            fail(f"{arch} profile: no ssd_scan device time traced")
         return
     print(f"[profile] device busy {busy:.3f} s = {100 * busy / wall:.1f}% "
           f"of wall (idle {100 * (1 - busy / wall):.1f}%), "
@@ -644,12 +680,18 @@ def profile_main_path(arch: str, n_requests: int) -> None:
                                                 "decode_fma_kernel")),
                           ("flash_attention", ("flash_mma_kernel",
                                                "flash_fwd_kernel")),
-                          ("ssd_scan", ("ssd_y_kernel", "ssd_state_kernel"))):
-        t = sum(e.device_time_total for e in kernels
-                if any(n in e.name for n in names)) / 1e3
+                          ("ssd_scan", ("ssd_scan_kernel",))):
+        hits = [e for e in kernels if any(n in e.name for n in names)]
+        t = sum(e.device_time_total for e in hits) / 1e3
         print(f"[profile]   {kernel}: {t:.3f} ms = "
               f"{100 * t / 1e3 / busy:.2f}% of busy, {t / ticks:.4f} ms "
-              "per tick")
+              f"per tick, {len(hits)} kernels traced")
+        if kernel == "ssd_scan" and has_ssd:
+            if t <= 0:
+                fail(f"{arch} profile: no ssd_scan device time traced")
+            if len(hits) != ssd_launches:
+                fail(f"{arch} profile: {len(hits)} ssd_scan kernels traced "
+                     f"for {ssd_launches} launches")
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -686,16 +728,20 @@ def pick_inputs(rng, G: int, cap: int, kmax: int):
 
 
 def check_group_pick() -> dict:
-    """Kernel vs plain, exact, at every case; timed at the fleet shape
-    (G=1024, CAP=32, kmax=8)."""
+    """Kernel vs plain, exact, at every case (CAP 32 to 256 take the
+    register variant with 1, 2, 4 and 8 keys a lane, 1024 and 4096 the
+    shared-memory one; kmax 40 stores two 32-round chunks and runs past
+    CAP 32); timed at the fleet shape (G=1024, CAP=32, kmax=8) beside the
+    device time of a one-element PyTorch kernel, the empty-launch
+    floor."""
     import torch
     from repro_torch.kernels.group_pick import kernel as gk
     from repro_torch.kernels.group_pick.ref import pick_order_ref
     rng = np.random.default_rng(5)
     n_cases, err = 0, 0
     for G in (1, 7, 1024):
-        for cap in (32, 33, 64, 1024, 4096):
-            for kmax in (1, 4, 8):
+        for cap in (32, 33, 64, 100, 256, 1024, 4096):
+            for kmax in (1, 4, 8, 40):
                 vr, rid = pick_inputs(rng, G, cap, kmax)
                 got = gk.pick_order_cuda(vr, rid, kmax)
                 torch.cuda.synchronize()
@@ -720,15 +766,138 @@ def check_group_pick() -> dict:
     sorts = time_ms(sort_pair, 200)
     nbytes = 2 * G * cap * 4 + G * kmax * 4
     b_ms, b_by = bound(nbytes, 0, "float32")
+    floor = empty_launch_ms()
     print(f"[pick] {n_cases} cases equal (G in 1,7,1024; CAP in 32,33,64,"
-          f"1024,4096; kmax in 1,4,8); G={G} CAP={cap} kmax={kmax}: "
-          f"ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
-          f"bound_ms={b_ms:.7f} ({b_by}) "
+          f"100,256,1024,4096; kmax in 1,4,8,40); G={G} CAP={cap} "
+          f"kmax={kmax}: ms={ms:.5f} device_ms={dev:.5f} "
+          f"plain_ms={plain:.5f} bound_ms={b_ms:.7f} ({b_by}) "
+          f"empty_launch_device_ms={floor:.5f} "
           f"sort_pair_ms={sorts:.5f} (context only: two stable sorts, "
           "which differ from the kernel on the tail columns)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                empty_launch_device_ms=floor,
                 shape=f"G={G} CAP={cap} kmax={kmax} int32")
+
+
+def empty_launch_ms() -> float:
+    """Device time of a one-element PyTorch kernel: what any launch
+    costs the card, the floor of a launch-bound kernel."""
+    import torch
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: one.add_(1), 500)
+
+
+def build_old(old_dir: Path):
+    """The C entries of an earlier ssd_scan.cu and group_pick.cu (e.g.
+    ``git show <commit>:src/repro_torch/csrc/ssd_scan.cu``), built with
+    the port's nvcc flags into build/repro_torch/old_*.so."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("ssd_scan", "group_pick"):
+        out = _build.BUILD_DIR / f"old_{name}.so"
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+               str(old_dir / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"old {name}.cu: nvcc exited {proc.returncode}\n{log}")
+        libs[name] = ctypes.CDLL(str(out))
+    ssd = libs["ssd_scan"].ssd_intra_chunk_fwd
+    ssd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    ssd.restype = ctypes.c_int
+    pick = libs["group_pick"].group_pick_fwd
+    pick.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    pick.restype = ctypes.c_int
+    return ssd, pick
+
+
+def compare_old(old_dir: str, gen) -> None:
+    """Time an earlier ssd_scan and group_pick against the present ones in
+    turns (old, new, new, old) at the main path's shapes, zamba2's N = 64
+    and a full chunk, on the same inputs, with the empty-launch floor
+    timed in the same turns; both versions are held to the plain one."""
+    import torch
+    from repro_torch.kernels.group_pick import kernel as gk
+    from repro_torch.kernels.group_pick.ref import pick_order_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    ssd_old, pick_old = build_old(Path(old_dir))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def turns(fns: dict, iters: int) -> dict:
+        got = {k: [] for k in fns}
+        for who in ("old", "new", "new", "old"):
+            got[who].append((time_ms(fns[who], iters),
+                             device_ms(fns[who], iters)))
+        return got
+
+    def fmt(rows):
+        return ("ms " + " ".join(f"{m:.5f}" for m, _ in rows)
+                + " device_ms " + " ".join(f"{d:.5f}" for _, d in rows))
+
+    for label, shape in (("main", (1, 1, 8, 64, 64, 128)),
+                         ("zamba2", (1, 1, 8, 64, 64, 64)),
+                         ("chunk", (2, 8, 256, 64, 64, 128))):
+        b, nc, Q, H, P, N = shape
+        args = ssd_inputs(gen, *shape)
+
+        def old(args=args, b=b, nc=nc, Q=Q, H=H, P=P, N=N):
+            y = torch.empty(b, nc, Q, H, P, device="cuda")
+            st = torch.empty(b, nc, H, P, N, device="cuda")
+            err = ssd_old(*(t.data_ptr() for t in args), y.data_ptr(),
+                          st.data_ptr(), b, nc, Q, H, P, N, 0, stream)
+            if err:
+                fail(f"old ssd_scan: CUDA error {err}")
+            return y, st
+
+        def new(args=args):
+            return sk.ssd_intra_chunk_cuda(*args)
+        want = ssd_intra_chunk_ref(*args)
+        for who, fn in (("old", old), ("new", new)):
+            got = fn()
+            torch.cuda.synchronize()
+            for o, w, what in zip(got, want, ("y", "states")):
+                compare(f"{who} ssd {label} {what}", o, w, "float32",
+                        SSD_TOL["float32"])
+        rows = turns({"old": old, "new": new}, 500 if Q <= 64 else 50)
+        (b_ms, b_by), (o_ms, _) = ssd_bounds(*shape)
+        print(f"[turns] ssd {label} b={b} nc={nc} Q={Q} H={H} P={P} N={N} "
+              f"float32 (old, new, new, old): old {fmt(rows['old'])}; new "
+              f"{fmt(rows['new'])}; bound_ms={b_ms:.6f} ({b_by}), f32-FMA "
+              f"bound {o_ms:.6f}")
+
+    rng = np.random.default_rng(6)
+    G, cap, kmax = FLEET["engines"], 32, FLEET["lanes"]
+    vr, rid = pick_inputs(rng, G, cap, kmax)
+
+    def pold():
+        out = torch.empty(G, kmax, dtype=torch.int32, device="cuda")
+        err = pick_old(vr.data_ptr(), rid.data_ptr(), out.data_ptr(), G,
+                       cap, kmax, stream)
+        if err:
+            fail(f"old group_pick: CUDA error {err}")
+        return out
+
+    def pnew():
+        return gk.pick_order_cuda(vr, rid, kmax)
+    want = pick_order_ref(vr, rid, kmax)
+    if not (torch.equal(pold(), want) and torch.equal(pnew(), want)):
+        fail("group_pick old or new differs from plain at the fleet shape")
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rows = turns({"old": pold, "new": pnew}, 2000)
+    floor = [device_ms(lambda: one.add_(1), 500) for _ in range(2)]
+    print(f"[turns] group_pick G={G} CAP={cap} kmax={kmax} (old, new, new, "
+          f"old): old {fmt(rows['old'])}; new {fmt(rows['new'])}; "
+          f"empty_launch_device_ms {floor[0]:.5f} {floor[1]:.5f}")
 
 
 def request_fields(reqs) -> list:
@@ -866,7 +1035,13 @@ def profile_fleet() -> None:
     print(f"[fprofile] phases {json.dumps(r['phases'])}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-csrc", metavar="DIR",
+                    help="also time ssd_scan.cu and group_pick.cu from DIR "
+                         "(an earlier version) against the present ones")
+    opts = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -892,6 +1067,10 @@ def main() -> int:
     flash = phase("flash", check_flash, gen)
     decode = phase("decode", check_decode, gen)
     ssd = phase("ssd_scan", check_ssd, gen)
+    # before the serving profiles: after them, device_ms of a long kernel
+    # read as little as half its time by CUDA events
+    if opts.old_csrc:
+        phase("old vs new", compare_old, opts.old_csrc, gen)
     phase(f"{ARCH} full width", check_full_model, ARCH, 8, 192)
     for arch in SSM_ARCHS:
         phase(f"{arch} full width", check_full_model, arch, 300, 320)

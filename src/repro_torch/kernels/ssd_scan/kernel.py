@@ -13,7 +13,7 @@ from repro_torch.kernels.ssd_scan.ref import check_shapes
 
 MAX_P = 128
 MAX_N = 128
-MAX_CHUNKS = 65535          # b * nc: the grid's z extent
+MAX_CHUNKS = 65535          # b * nc, as the C entry point checks
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (set to 0 to reset)
