@@ -40,6 +40,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launched decode-attention as often, and the schedule (mean, median and
    P99 turnaround, mean RTE, context switches) equals a ``--synthetic``
    run's with the same arguments;
+   "replicas": the same on qwen2.5-3b and zamba2-1.2b under ``sfs`` with
+   ``--replicas 2`` (two engines over one model behind the router, each
+   with its own cache): every check above with the launches summed over
+   the engines, the dispatch counts equal to the ``--synthetic
+   --replicas 2`` run's, and every replica given requests; wall s, ms per
+   cluster tick and decode tok/s printed beside the card;
 6. where the time goes: one more serving run of qwen2.5-3b (16
    requests) and one each of mamba2-1.3b and zamba2-1.2b (8 requests)
    under torch.profiler (device activity only), with the card's busy
@@ -55,14 +61,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel's device time) at the fleet shape; with ``--old-csrc DIR``, an
    earlier ssd_scan.cu and group_pick.cu from DIR built and timed against
    the present ones in turns (old, new, new, old) on the same inputs;
-8. the fleet backend at 64 engines x 4 lanes (250 requests, sfs-aware,
-   history predictor): the CUDA run equals the port's own CPU run in
-   every per-request field, the dispatch counts, the ETA log and the
-   overload bypasses;
+8. "fleet 64x4": the fleet backend at 64 engines x 4 lanes (250
+   requests, sfs-aware, history predictor): the CUDA run equals the
+   port's own CPU run, and the port's host backends (``engine="tick"``
+   and ``engine="vector"``) on the same spec, in every per-request field,
+   the dispatch counts, the ETA log and the overload bypasses;
 9. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
    load 0.8, faults + retries + shedding) on the card under sfs-aware and
    hash: fingerprint and shed count equal the recorded rows of
    ``benchmarks/baselines/BENCH_cluster.json``;
+   "recorded rows": the port's ``engine="vector"`` and ``engine="tick"``
+   (host code, in worker processes) on all eight ``elastic`` and
+   ``chaos`` rows of that file (loads 0.6 and 0.8, sfs-aware and hash),
+   each spec built as ``run_elastic`` and ``run_chaos`` build it:
+   ``vector`` reproduces every row's fingerprint and shed count, ``tick``
+   the elastic rows' and, on the chaos rows, those of the JAX package's
+   own tick backend (``TICK_CHAOS``);
 10. the fleet main path: ``repro_torch.launch.fleet`` at 1024 engines x
    8 lanes, load 0.9, 500,000 requests, seed 11, under sfs-aware and
    hash: fingerprints equal the recorded rows, and group_pick launched
@@ -72,7 +86,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    share; reported only).
 
 Each phase prints its wall time (``[time]``).  It then prints one JSON
-line describing the four kernels and, last, the
+line describing the four kernels (launches summed over phases 5 and 10,
+the replica runs included) and, last, the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 """
@@ -100,6 +115,8 @@ SSD_TOL = {"float32": dict(atol=3e-5, rtol=3e-4),
            "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 ARCH = "qwen2.5-3b"
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-1.2b")
+# multi-replica serving: two engines over one model behind the router
+REPLICA_ARCHS = ("qwen2.5-3b", "zamba2-1.2b")
 SERVE_ARGS = ["--full", "--device", "cuda", "--requests", "48", "--lanes",
               "4", "--slots", "32", "--max-len", "192", "--seed", "0"]
 BASELINES = ROOT / "benchmarks" / "baselines" / "BENCH_cluster.json"
@@ -111,6 +128,16 @@ CHAOS = dict(
     lifecycle="lifecycle:cold=2,ttl=400,cap=8",
     faults="faults:mttf=1200,mttr=250,blast=4,episodes=3,seed=13,first=800",
     retry="retry:timeout=400,retries=2,backoff=16,shed=10")
+# engine="tick" on the four chaos rows, (policy, load) -> (fingerprint,
+# shed): what the JAX package's own per-object backend gives
+# (tests/test_torch_tick_cluster.py holds it to these).  The recorded rows
+# were written by its vector backend, whose groups keep a failed engine's
+# adaptive slice across the failure, where the per-object backend builds
+# a fresh scheduler; so the two differ from the first recovery on.
+TICK_CHAOS = {("sfs-aware", 0.6): ("7d662fc44ff05095", 0),
+              ("hash", 0.6): ("8f56c1fe7cd9f425", 0),
+              ("sfs-aware", 0.8): ("2acea526c8067119", 5339),
+              ("hash", 0.8): ("d88b2c669427900a", 5239)}
 
 
 def fail(msg: str):
@@ -556,9 +583,11 @@ SCHEDULE_KEYS = ("mean_turnaround", "median_turnaround", "p99_turnaround",
                  "mean_rte", "total_ctx")
 
 
-def run_main_path(arch: str, policies) -> dict:
-    """serve.main on ``arch`` under each policy; returns launches per
-    kernel, summed over the policies."""
+def run_main_path(arch: str, policies, replicas: int = 1,
+                  card: str = "") -> dict:
+    """serve.main on ``arch`` under each policy, over ``replicas`` engines
+    (behind the router when more than one); returns launches per kernel,
+    summed over the policies and the engines."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -586,6 +615,8 @@ def run_main_path(arch: str, policies) -> dict:
     try:
         for policy in policies:
             args = SERVE_ARGS + ["--arch", arch, "--policy", policy]
+            if replicas > 1:
+                args += ["--replicas", str(replicas)]
             finite.clear()
             fk.launches = dk.launches = sk.launches = 0
             s = serve.main(args)
@@ -593,12 +624,20 @@ def run_main_path(arch: str, policies) -> dict:
                  "decode_attention": dk.launches, "ssd_scan": sk.launches}
             ok = bool(torch.stack(finite).all()) if finite else False
             synth = serve.main(args + ["--synthetic"])
-            same = all(s[k] == synth[k] for k in SCHEDULE_KEYS)
-            print(f"[serve] {arch} {policy}: decode_tok_per_s="
-                  f"{s['decode_tok_per_s']:.1f} wall_s={s['wall_s']:.3f} "
-                  f"ticks={s['ticks']} prefills={s['prefills']} "
-                  f"decode_steps={s['decode_steps']} launches {n}; "
-                  f"schedule == --synthetic run: {same}")
+            keys = SCHEDULE_KEYS + (("dispatch_counts",) if replicas > 1
+                                    else ())
+            same = all(s[k] == synth[k] for k in keys)
+            label = "serve" if replicas == 1 else "replicas"
+            print(f"[{label}] {arch} {policy} x{replicas}: "
+                  f"decode_tok_per_s={s['decode_tok_per_s']:.1f} "
+                  f"wall_s={s['wall_s']:.3f} ticks={s['ticks']} "
+                  f"ms_per_tick={1e3 * s['wall_s'] / s['ticks']:.2f} "
+                  f"prefills={s['prefills']} "
+                  f"decode_steps={s['decode_steps']} launches {n}"
+                  + (f" dispatch_counts={s['dispatch_counts']}"
+                     if replicas > 1 else "")
+                  + f"; schedule == --synthetic run: {same}"
+                  + (f" ({card})" if card else ""))
             if s["incomplete"] or s["n"] != 48:
                 fail(f"{arch} {policy}: {s['incomplete']} requests "
                      "incomplete")
@@ -618,7 +657,11 @@ def run_main_path(arch: str, policies) -> dict:
             if not same:
                 fail(f"{arch} {policy}: schedule differs from the "
                      "--synthetic run: " + ", ".join(
-                         f"{k} {s[k]} vs {synth[k]}" for k in SCHEDULE_KEYS))
+                         f"{k} {s[k]} vs {synth[k]}" for k in keys))
+            if replicas > 1 and (len(s["dispatch_counts"]) != replicas
+                                 or min(s["dispatch_counts"]) == 0):
+                fail(f"{arch} {policy}: a replica received no requests: "
+                     f"{s['dispatch_counts']}")
             for key in totals:
                 totals[key] += n[key]
     finally:
@@ -909,7 +952,9 @@ def request_fields(reqs) -> list:
 
 
 def check_fleet_cpu_vs_cuda() -> None:
-    """64 engines x 4 lanes: the CUDA run equals the CPU run."""
+    """64 engines x 4 lanes: the CUDA run equals the CPU run, and the
+    host backends (engine="tick" and "vector") equal the CUDA run."""
+    import dataclasses
     from repro_torch.core.spec import (ExperimentSpec, ServerSpec,
                                        TickWorkloadSpec, run_experiment)
     spec = ExperimentSpec(
@@ -918,15 +963,22 @@ def check_fleet_cpu_vs_cuda() -> None:
         workload=TickWorkloadSpec(n=250, load=1.0, seed=23))
     runs = {dev: run_experiment(spec, max_ticks=2_000_000, device=dev)
             for dev in ("cpu", "cuda")}
-    a, b = runs["cpu"], runs["cuda"]
-    same = {"requests": request_fields(a.raw) == request_fields(b.raw),
-            "dispatch_counts": a.dispatch_counts == b.dispatch_counts,
-            "eta_log": a.eta_log == b.eta_log,
-            "overload_bypasses": a.overload_bypasses == b.overload_bypasses}
-    print(f"[fleet64] 64x4 n=250 sfs-aware history: cuda == cpu {same}, "
-          f"n={b.n} fingerprint {b.fingerprint()[:16]}")
-    if not all(same.values()) or b.n != 250:
-        fail("fleet 64x4: the CUDA run differs from the CPU run")
+    for engine in ("tick", "vector"):
+        runs[engine] = run_experiment(
+            dataclasses.replace(spec, engine=engine), max_ticks=2_000_000,
+            device="cuda")
+    b = runs["cuda"]
+    for other in ("cpu", "tick", "vector"):
+        a = runs[other]
+        same = {"requests": request_fields(a.raw) == request_fields(b.raw),
+                "dispatch_counts": a.dispatch_counts == b.dispatch_counts,
+                "eta_log": a.eta_log == b.eta_log,
+                "overload_bypasses": (a.overload_bypasses
+                                      == b.overload_bypasses)}
+        print(f"[fleet64] 64x4 n=250 sfs-aware history: cuda == {other} "
+              f"{same}, n={a.n} fingerprint {a.fingerprint()[:16]}")
+        if not all(same.values()) or a.n != 250:
+            fail(f"fleet 64x4: the CUDA run differs from the {other} run")
 
 
 def recorded(scenario: str, policy: str, load: float) -> dict:
@@ -955,6 +1007,68 @@ def check_chaos() -> None:
               f"{r['wall_s']:.2f} s, stepped ticks {r['stepped_ticks']}")
         if fp != want["provenance"]["result_fp"] or r["shed"] != want["shed"]:
             fail(f"chaos {policy}: differs from the recorded row")
+
+
+def recorded_spec(scenario: str, policy: str, load: float) -> dict:
+    """ExperimentSpec fields of a ``run_elastic`` or ``run_chaos`` row of
+    ``benchmarks/cluster_sweep.py`` (16 x 4 engines, 20,000 requests),
+    built as those functions build them."""
+    from repro_torch.core.spec import ServerSpec
+    wl = f"bimodal:n=20000,seed=7,load={load}|zipf:funcs=16,s=1.1"
+    spec = dict(servers=tuple(ServerSpec(cores=4) for _ in range(16)),
+                dispatch=policy)
+    if scenario == "elastic":
+        return dict(spec, workload=wl + "|flash:at=1000,x=2,dur=1000",
+                    lifecycle="lifecycle:cold=2,ttl=400,cap=8,"
+                              "fail=2600,fail_server=3",
+                    scaling="scale:min=12,T=25,up=0.6,down=0.15,step=2")
+    return dict(spec, workload=wl, lifecycle=CHAOS["lifecycle"],
+                faults=CHAOS["faults"], retry=CHAOS["retry"])
+
+
+def run_recorded(job) -> tuple:
+    """One recorded row on one host backend: (fingerprint[:16], shed,
+    submitted, wall s).  Runs in a worker process."""
+    scenario, policy, load, engine = job
+    from repro_torch.core.spec import ExperimentSpec, run_experiment
+    res = run_experiment(
+        ExperimentSpec(engine=engine,
+                       **recorded_spec(scenario, policy, load)),
+        max_ticks=50_000_000, device="cuda")
+    return res.fingerprint()[:16], res.shed, res.n + res.shed, res.wall_s
+
+
+def check_recorded_rows() -> None:
+    """The port's host backends on all eight elastic and chaos rows of
+    BENCH_cluster.json (recorded on the JAX package's vector backend):
+    engine="vector" reproduces every row's fingerprint and shed count,
+    engine="tick" the elastic rows' and, on the chaos rows, the JAX
+    package's tick backend's (``TICK_CHAOS``).  The 16 runs are host code
+    only and share nothing, so they run in worker processes, several at
+    a time."""
+    import multiprocessing
+    import os
+    jobs = [(sc, pol, load, engine) for sc in ("elastic", "chaos")
+            for load in (0.6, 0.8) for pol in ("sfs-aware", "hash")
+            for engine in ("vector", "tick")]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        results = pool.map(run_recorded, jobs, chunksize=1)
+    bad = []
+    for (sc, pol, load, engine), (fp, shed, n, wall) in zip(jobs, results):
+        row = recorded(sc, pol, load)
+        want, what = (row["provenance"]["result_fp"], row["shed"]), "recorded"
+        if engine == "tick" and sc == "chaos":
+            want, what = TICK_CHAOS[(pol, load)], "JAX package's tick"
+        ok = (fp, shed) == want and n == row["n"]
+        print(f"[recorded] {sc} {pol} load={load} {engine}: fingerprint "
+              f"{fp} shed {shed} n {n} ({what} {want[0]} / {want[1]} / "
+              f"{row['n']}) wall {wall:.2f} s: "
+              f"{'equal' if ok else 'DIFFERS'}")
+        if not ok:
+            bad.append(f"{sc} {pol} {load} {engine}")
+    if bad:
+        fail("recorded rows differ: " + "; ".join(bad))
 
 
 def run_fleet_main_path() -> int:
@@ -1061,7 +1175,7 @@ def main(argv=None) -> int:
         out = fn(*args)
         print(f"[time] {label}: {time.perf_counter() - t:.1f} s")
         return out
-    device_line()
+    card = device_line()
     phase("build", build_kernels)
     gen = torch.Generator("cuda").manual_seed(0)
     flash = phase("flash", check_flash, gen)
@@ -1079,12 +1193,17 @@ def main(argv=None) -> int:
         for name, n in phase(f"{arch} serving", run_main_path, arch,
                              ("sfs",)).items():
             launches[name] += n
+    for arch in REPLICA_ARCHS:
+        for name, n in phase(f"{arch} replicas", run_main_path, arch,
+                             ("sfs",), 2, card).items():
+            launches[name] += n
     phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
     for arch in SSM_ARCHS:
         phase(f"{arch} profile", profile_main_path, arch, 8)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)
     phase("chaos", check_chaos)
+    phase("recorded rows", check_recorded_rows)
     launches["group_pick"] = phase("fleet1024", run_fleet_main_path)
     phase("fleet profile", profile_fleet)
     kernels = []

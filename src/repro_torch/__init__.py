@@ -5,9 +5,15 @@ A package of its own beside the JAX reference ``repro``: it imports
 run on the CUDA card unless the caller asks for the CPU.
 
 ``run_experiment(ExperimentSpec(servers=..., workload=...))`` drives the
-fleet-stepping backend (:mod:`repro_torch.serving.torch_cluster`);
-:mod:`repro_torch.launch.serve` drives one engine with a real model.
+fleet-stepping backend (:mod:`repro_torch.serving.torch_cluster`), or with
+``engine="tick"`` / ``"vector"`` the host backends
+(:mod:`repro_torch.serving.cluster`,
+:mod:`repro_torch.serving.vector_cluster`);
+:mod:`repro_torch.launch.serve` drives one engine with a real model, or
+N replicas of it behind a :class:`Router` (``--replicas N``).
 """
 from repro_torch.core.spec import ExperimentSpec, ServerSpec, run_experiment
+from repro_torch.serving import Cluster, ClusterConfig, Router
 
-__all__ = ["ExperimentSpec", "ServerSpec", "run_experiment"]
+__all__ = ["Cluster", "ClusterConfig", "ExperimentSpec", "Router",
+           "ServerSpec", "run_experiment"]

@@ -13,14 +13,19 @@ never imports the JAX package.
   ``parse(str(spec)) == spec``.
 * ``ServerSpec`` — one server's shape: ``cores`` (decode lanes), its
   scheduler spec, and cache ``slots``.
-* ``ExperimentSpec`` — workload + engine (``torch``, the fleet-stepping
-  backend of :mod:`repro_torch.serving.torch_cluster`) + servers +
-  dispatch + predictor + lifecycle/chaos knobs, runnable through
+* ``ExperimentSpec`` — workload + engine + servers + dispatch +
+  predictor + lifecycle/chaos knobs, runnable through
   :func:`run_experiment`, which returns one :class:`ExperimentResult`.
+  The engines are the three tick-semantics backends: ``torch`` (the
+  fleet stepping on the device, :mod:`repro_torch.serving.torch_cluster`,
+  the counterpart of the JAX package's ``jax``), ``tick`` (per-object
+  engines, :mod:`repro_torch.serving.cluster`) and ``vector`` (numpy
+  struct-of-arrays groups, :mod:`repro_torch.serving.vector_cluster`);
+  ``tick`` and ``vector`` are host code.
 
-The JAX package's other engines (``des``, ``tick``, ``vector``) are not
-ported; naming one raises.  This module imports nothing heavier than
-numpy at module scope; engine construction is lazy.
+The JAX package's ``des`` engine is not ported and its ``jax`` engine is
+``torch`` here; naming either raises.  This module imports nothing
+heavier than numpy at module scope; engine construction is lazy.
 """
 from __future__ import annotations
 
@@ -111,7 +116,8 @@ PREDICTOR_REGISTRY = Registry("predictor", "repro_torch.core.predict")
 WORKLOAD_REGISTRY = Registry("workload", "repro_torch.core.workload")
 
 # the JAX package's engines that this package does not run
-NOT_PORTED = ("des", "tick", "vector", "jax")
+NOT_PORTED = ("des", "jax")
+ENGINES = ("torch", "tick", "vector")
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +655,7 @@ class ServerSpec:
                                  "cores/scheduler/slots/max_len")
         return cls(**kw)
 
-    # -- converter ------------------------------------------------------
+    # -- converters (spec <-> EngineConfig) ------------------------------
     def to_engine_config(self):
         """This package's :class:`~repro_torch.serving.engine.EngineConfig`
         for this server (lazy import)."""
@@ -669,6 +675,20 @@ class ServerSpec:
                                      else 16 * self.cores),
                             policy=self.scheduler.name, sched_kw=kw,
                             **extra)
+
+    @classmethod
+    def from_engine_config(cls, ecfg) -> "ServerSpec":
+        """Lossless converse of :meth:`to_engine_config`."""
+        inv = {v: k for k, v in TICK_SCHED_FIELDS.items()}
+        args = []
+        for k, v in ecfg.sched_kw.items():
+            if k not in inv:
+                raise ValueError(f"sched_kw {k!r} has no canonical spec "
+                                 "knob")
+            args.append((inv[k], v))
+        return cls(cores=ecfg.lanes, scheduler=SchedulerSpec(
+            ecfg.policy, tuple(args)), slots=ecfg.n_slots,
+            max_len=ecfg.max_len)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -786,9 +806,18 @@ class ExperimentSpec:
     ``retry`` into correlated failure episodes with recovery and request
     timeouts/retries/hedging/shedding (:mod:`repro_torch.core.chaos`).
 
-    ``engine="torch"`` (the only engine of the port) runs tick semantics
-    through :class:`~repro_torch.serving.torch_cluster.TorchCluster`, the
+    ``engine="torch"`` (the default) runs tick semantics through
+    :class:`~repro_torch.serving.torch_cluster.TorchCluster`, the
     counterpart of the JAX package's ``engine="jax"``, bit for bit.
+    ``engine="tick"`` runs per-object engines
+    (:class:`~repro_torch.serving.cluster.Cluster`) and ``engine="vector"``
+    the struct-of-arrays groups
+    (:class:`~repro_torch.serving.vector_cluster.VectorCluster`), both on
+    the host.  ``vector`` is bit-exact with ``torch``.  ``tick`` is
+    bit-exact with both except after a failed server recovers: its
+    eviction builds a fresh scheduler, while ``vector`` and ``torch``
+    keep the server's adaptive slice, arrival window and
+    ``min_vruntime``, as the JAX package's backends do.
     """
 
     engine: str = "torch"
@@ -807,9 +836,9 @@ class ExperimentSpec:
             raise ValueError(f"engine {self.engine!r} is not ported to "
                              "repro_torch; use engine='torch' (the fleet "
                              "backend, equal to the JAX package's 'jax')")
-        if self.engine != "torch":
+        if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; "
-                             "expected 'torch'")
+                             "expected 'torch', 'tick' or 'vector'")
         servers = tuple(ServerSpec.parse(s) if isinstance(s, str) else s
                         for s in self.servers)
         if not servers:
@@ -971,6 +1000,8 @@ def run_experiment(spec: ExperimentSpec, requests=None, *,
     explicit serving-request list.  Deterministic given the
     spec/workload, on either device.  ``device`` is the CUDA card unless
     the caller asks for ``"cpu"``; without a card the default raises.
+    The ``tick`` and ``vector`` backends step on the host; their engines
+    are built on ``device`` all the same.
 
     ``telemetry`` opts into the observability layer
     (:mod:`repro_torch.core.telemetry`): a ``Telemetry`` /
@@ -995,9 +1026,30 @@ def _chaos_counts(owner) -> dict:
             "retries": cc.get("retry", 0)}
 
 
+def _build_tick_cluster(spec: ExperimentSpec, device):
+    """Stepping backend for a tick-semantics experiment: the
+    struct-of-arrays ``VectorCluster`` (``engine="vector"``), the fleet
+    stepping ``TorchCluster`` on ``device`` (``engine="torch"``), or the
+    per-object ``Cluster`` (``engine="tick"``).  All three are bit-exact
+    with each other, except that ``tick`` schedules differently after a
+    failed server recovers (see :class:`ExperimentSpec`)."""
+    if spec.engine == "vector":
+        from repro_torch.serving.vector_cluster import VectorCluster
+        return VectorCluster(spec.servers, spec.to_cluster_config(),
+                             device=device)
+    if spec.engine == "torch":
+        from repro_torch.serving.torch_cluster import TorchCluster
+        return TorchCluster(spec.servers, spec.to_cluster_config(),
+                            device=device)
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import Engine
+    engines = [Engine(s.to_engine_config(), device=device)
+               for s in spec.servers]
+    return Cluster(engines, spec.to_cluster_config())
+
+
 def _run_tick(spec: ExperimentSpec, requests, t0: float,
               max_ticks: int, tel=None, device="cuda") -> ExperimentResult:
-    from repro_torch.serving.torch_cluster import TorchCluster
     if requests is None:
         if not isinstance(spec.workload, (TickWorkloadSpec, WorkloadSpec)):
             raise ValueError(
@@ -1005,8 +1057,7 @@ def _run_tick(spec: ExperimentSpec, requests, t0: float,
                 f"workload (or an explicit request list); got "
                 f"{spec.workload!r}")
         requests = spec.workload.generate(spec.total_cores)
-    cluster = TorchCluster(spec.servers, spec.to_cluster_config(),
-                           device=device)
+    cluster = _build_tick_cluster(spec, device)
     if tel is not None:
         cluster.attach_telemetry(tel)
     done = cluster.run(requests, max_ticks=max_ticks)

@@ -4,8 +4,10 @@
 Boots the SFS-scheduled continuous-batching engine on a (reduced by
 default) model with random weights from ``--seed`` and replays a
 FaaSBench-style request stream against it, printing the paper's metrics
-(turnaround, RTE, context switches) and the decode rate.  Runs on the
-CUDA card unless ``--device`` says otherwise.
+(turnaround, RTE, context switches) and the decode rate.  ``--replicas N``
+puts N engines over the one model behind the front-tier router (hash
+dispatch, :class:`~repro_torch.serving.router.Router`), each with its own
+cache.  Runs on the CUDA card unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving import Engine, EngineConfig, Request, summarize
+from repro_torch.serving import (Engine, EngineConfig, Request, Router,
+                                 summarize)
 
 
 def synth_workload(n: int, lanes: int, load: float, seed: int = 0,
@@ -53,9 +56,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.replicas > 1:
-        raise NotImplementedError("--replicas > 1 needs the router, which "
-                                  "is not ported yet")
     device = resolve_device(args.device)
     cfg = configs.get(args.arch) if args.full else \
         configs.get_reduced(args.arch)
@@ -67,16 +67,27 @@ def main(argv=None):
     if not args.synthetic:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model = Transformer(cfg, device=device, generator=gen)
-    engine = Engine(EngineConfig(lanes=args.lanes, n_slots=args.slots,
-                                 max_len=args.max_len, policy=args.policy),
-                    model, device=device)
+    # the replicas share the model's weights; each engine has its own cache
+    engines = [Engine(EngineConfig(lanes=args.lanes, n_slots=args.slots,
+                                   max_len=args.max_len, policy=args.policy),
+                      model, device=device)
+               for _ in range(args.replicas)]
 
-    wl = synth_workload(args.requests, args.lanes, args.load, args.seed)
+    wl = synth_workload(args.requests, args.lanes * args.replicas,
+                        args.load, args.seed)
     prompts = ({r.rid: rng.integers(0, cfg.vocab, 8) for r in wl}
                if not args.synthetic else None)
 
     t0 = time.perf_counter()
-    done = engine.run(wl, prompts=prompts)
+    if args.replicas > 1:
+        # as in the JAX package's launcher, the router is given no
+        # prompts: every prefill runs zeros(prompt_len)
+        router = Router(engines)
+        done = router.run(wl)
+        ticks = router.cluster.t
+    else:
+        done = engines[0].run(wl, prompts=prompts)
+        ticks = engines[0].t
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -84,10 +95,12 @@ def main(argv=None):
     s = summarize(done)
     decode_tokens = sum(r.tokens_done for r in done)
     s.update(incomplete=sum(r.tokens_done != r.n_tokens for r in done),
-             ticks=engine.t, prefills=engine.n_prefills,
-             decode_steps=engine.n_decode_steps,
+             ticks=ticks, prefills=sum(e.n_prefills for e in engines),
+             decode_steps=sum(e.n_decode_steps for e in engines),
              decode_tokens=decode_tokens, wall_s=wall,
              decode_tok_per_s=decode_tokens / wall)
+    if args.replicas > 1:
+        s["dispatch_counts"] = router.cluster.dispatch_counts
     print(f"policy={args.policy} replicas={args.replicas} "
           f"load={args.load} device={device}")
     for k, v in s.items():

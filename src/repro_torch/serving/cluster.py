@@ -6,13 +6,27 @@ The scheduling hierarchy:
   level 2  FILTER lanes       — run-to-completion short lanes (paper §V)
   level 1  fair-share pool    — CFS for demoted/long work
 
-A copy of ``ClusterConfig`` and ``ClusterFrontend`` from
-``repro.serving.cluster`` (the JAX package's module): routing through a
-policy from :mod:`repro_torch.core.dispatch` (``hash``,
-``least-outstanding``, ``pull``, ``sfs-aware``), the central pull queue,
-ETA-hint propagation, and the lifecycle/chaos decisions at the top of a
-tick.  The stepping backend plugs in through the hooks below.  The JAX
-package's per-object ``Cluster`` and its ``EngineView`` are not ported.
+A copy of ``repro.serving.cluster`` (the JAX package's module).
+``Cluster`` ticks N :class:`~repro_torch.serving.engine.Engine` replicas
+in lock step over a shared arrival stream (``ExperimentSpec(
+engine="tick")``, and :class:`~repro_torch.serving.router.Router` over
+engines that run a model), routing each arrival through a policy from
+:mod:`repro_torch.core.dispatch` (``hash``, ``least-outstanding``,
+``pull``, ``sfs-aware``).  Under ``pull``, arrivals wait in a central
+queue and engines with free capacity (an idle lane AND a free cache
+slot) pull work each tick.
+
+The dispatch-side frontend (routing, hash batch semantics, the pull
+drain, ETA-hint propagation, the lifecycle/chaos decisions at the top of
+a tick) lives in :class:`ClusterFrontend`, shared verbatim by the
+per-object ``Cluster`` here, the struct-of-arrays
+:class:`~repro_torch.serving.vector_cluster.VectorCluster` and the fleet
+backend :class:`~repro_torch.serving.torch_cluster.TorchCluster`, so the
+three stepping backends can be cross-validated bit for bit.  They
+differ in one place: after a failed server recovers, the per-object
+eviction here has built a fresh scheduler, while the two group backends
+keep the server's adaptive slice, arrival window and ``min_vruntime``,
+as the JAX package's backends differ.
 """
 from __future__ import annotations
 
@@ -20,6 +34,8 @@ import dataclasses
 from collections import deque
 from time import perf_counter
 from typing import Optional, Sequence
+
+import numpy as np
 
 from repro_torch.core.chaos import FaultTimeline, RetryWatchdog
 from repro_torch.core.dispatch import (DispatchPolicy, HashDispatch,
@@ -30,7 +46,34 @@ from repro_torch.core.lifecycle import (Autoscaler, WarmSet,
 from repro_torch.core.predict import make_predictor
 from repro_torch.core.spec import (FaultSpec, LifecycleSpec, RetrySpec,
                                    ScalingSpec, resolve_dispatch)
+from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request
+
+
+class EngineView(ServerView):
+    """Dispatch-visible scheduling state of one tick engine."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+
+    @property
+    def lanes(self) -> int:
+        return self.engine.ecfg.lanes
+
+    def outstanding(self) -> int:
+        return self.engine.outstanding()
+
+    def filter_free(self) -> int:
+        return self.engine.scheduler.filter_free()
+
+    def fair_load(self) -> int:
+        return self.engine.scheduler.fair_load()
+
+    def queue_len(self) -> int:
+        return self.engine.scheduler.queue_len()
+
+    def capacity(self) -> int:
+        return self.engine.free_capacity()
 
 
 @dataclasses.dataclass
@@ -61,14 +104,29 @@ class ClusterConfig:
     faults: object = None
     retry: object = None
 
+    def to_spec(self, servers):
+        """Equivalent :class:`~repro_torch.core.spec.ExperimentSpec`;
+        ``servers`` supplies the per-engine ServerSpecs (the config never
+        knew them — engines are built separately, e.g.
+        ``cfg.to_spec([e.ecfg.to_spec() for e in engines])``)."""
+        from repro_torch.core.spec import ExperimentSpec
+        return ExperimentSpec(
+            engine="tick", servers=tuple(servers),
+            dispatch=resolve_dispatch(self.policy,
+                                      overload_factor=self.overload_factor,
+                                      adaptive_window=self.adaptive_window,
+                                      slice_init=self.slice_init),
+            predictor=self.predictor,
+            lifecycle=self.lifecycle, scaling=self.scaling,
+            faults=self.faults, retry=self.retry)
+
 
 class ClusterFrontend:
     """Level-3 dispatch frontend, independent of the stepping backend.
 
     Owns the dispatch policy, the predictor, the central (pull) queue
-    and the per-tick routing semantics.  Backends (here the fleet
-    backend, :class:`~repro_torch.serving.torch_cluster.TorchCluster`,
-    which also owns the run loop) plug in through five hooks: ``_submit`` (deliver a routed request to server ``idx``),
+    and the per-tick routing semantics.  Backends plug in through five
+    hooks: ``_submit`` (deliver a routed request to server ``idx``),
     ``_step`` (advance every server one tick), ``_active_counts``
     (per-server running-request counts for the tick log),
     ``_finished_count`` and ``_collect`` (result extraction).
@@ -484,6 +542,28 @@ class ClusterFrontend:
                        {"central_queue": len(self.central_queue)})
         self.t += 1
 
+    def run(self, workload: Sequence[Request], max_ticks: int = 1_000_000,
+            prompts: Optional[dict] = None) -> list[Request]:
+        """Drive the cluster over a workload; returns requests rid-sorted."""
+        workload = sorted(workload, key=lambda r: r.arrival)
+        i, n = 0, len(workload)
+        # shed requests never finish; they terminate the loop as their
+        # own accounting, excluded from every completion metric
+        while self._finished_count() + len(self._shed) < n:
+            if self.t > max_ticks:
+                raise RuntimeError(
+                    f"cluster exceeded {max_ticks} ticks "
+                    f"({self._finished_count()}/{n})")
+            arrivals = []
+            while i < n and workload[i].arrival <= self.t:
+                r = workload[i]
+                if prompts is not None and r.rid in prompts:
+                    r._prompt = np.asarray(prompts[r.rid])
+                arrivals.append(r)
+                i += 1
+            self.tick(arrivals)
+        return sorted(self._collect(), key=lambda r: r.rid)
+
     # ------------------------------------------------------------------
     @property
     def dispatch_counts(self) -> list[int]:
@@ -499,3 +579,83 @@ class ClusterFrontend:
                                          0),
             "ticks": self.t,
         }
+
+
+def _evict_one(engine: Engine, rid: int):
+    """Remove the single request ``rid`` from a per-object engine —
+    slot-pending, or resident in a slot and in whatever scheduler
+    structure holds it — and return it (None if absent).  Shared by
+    ``Cluster`` and the vector backend's object-engine stragglers."""
+    for i, r in enumerate(engine.pending_slot):
+        if r.rid == rid:
+            engine.pending_slot.pop(i)
+            return r
+    for slot, r in engine.by_slot.items():
+        if r.rid == rid:
+            del engine.by_slot[slot]
+            engine.free_slots.append(slot)
+            engine.next_token.pop(rid, None)
+            r.slot = None
+            if r.stall_until >= 0:
+                r.stall_until = -1
+                engine.n_stalled -= 1
+            engine.scheduler.discard(rid)
+            return r
+    return None
+
+
+def _evict_engine(engine: Engine, trace, idx: int) -> list:
+    """Evict every resident request of a per-object engine and reset it
+    to empty (fresh scheduler, full slot pool).  Shared by ``Cluster``
+    and the vector backend's object-engine stragglers."""
+    from repro_torch.serving.schedulers import make_scheduler
+    evicted = list(engine.by_slot.values()) + list(engine.pending_slot)
+    engine.by_slot.clear()
+    engine.pending_slot.clear()
+    engine.free_slots = list(range(engine.ecfg.n_slots))
+    engine.next_token.clear()
+    engine.n_stalled = 0
+    engine.scheduler = make_scheduler(engine.ecfg.policy, engine.ecfg.lanes,
+                                      **engine.ecfg.sched_kw)
+    if trace is not None:
+        engine.scheduler.bind_trace(trace, idx)
+    return evicted
+
+
+class Cluster(ClusterFrontend):
+    """N per-object engines, one dispatch policy, lock-step ticks."""
+
+    def __init__(self, engines: Sequence[Engine],
+                 cfg: Optional[ClusterConfig] = None):
+        self.engines = list(engines)
+        super().__init__([EngineView(e) for e in self.engines], cfg)
+        for e in self.engines:
+            e.on_finish = self._observe_finish
+
+    # -- backend hooks -------------------------------------------------
+    def _bind_backend(self, tel):
+        if tel.trace is not None:
+            for i, e in enumerate(self.engines):
+                e.scheduler.bind_trace(tel.trace, i)
+
+    def _submit(self, idx: int, req: Request):
+        self.engines[idx].submit(req, getattr(req, "_prompt", None))
+
+    def _evict_server(self, idx: int) -> list:
+        return _evict_engine(self.engines[idx], self._trace, idx)
+
+    def _evict_request(self, idx: int, rid: int):
+        return _evict_one(self.engines[idx], rid)
+
+    def _step(self):
+        for e in self.engines:
+            e.tick(())
+
+    def _active_counts(self) -> tuple:
+        return tuple(e.tick_log[-1][1] for e in self.engines)
+
+    def _finished_count(self) -> int:
+        return sum(len(e.finished) for e in self.engines)
+
+    def _collect(self) -> list:
+        return [r for e in self.engines for r in e.finished]

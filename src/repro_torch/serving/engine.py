@@ -11,8 +11,10 @@ service ticks, RTE, lane reassignments) mirrors the paper's metrics.
 ``model=None`` runs the engine in synthetic mode (no model calls):
 identical scheduling behaviour.  With a model, every tick runs the real
 step on the model's device and copies the tick's new token ids to the
-host once.  The reference's cluster hooks (``on_finish``, the dispatch
-views, completion tracing) wait for the cluster layer's port.
+host once.  The dispatch-visible state (``outstanding``,
+``runnable_count``, ``free_capacity``), the ``on_finish`` callback and the
+``complete`` trace event are the cluster layer's hooks
+(:mod:`repro_torch.serving.cluster`).
 """
 from __future__ import annotations
 
@@ -36,6 +38,12 @@ class EngineConfig:
     policy: str = "sfs"
     sched_kw: dict = dataclasses.field(default_factory=dict)
 
+    def to_spec(self):
+        """Equivalent :class:`~repro_torch.core.spec.ServerSpec` (lossless;
+        round-trips through ``ServerSpec.to_engine_config()``)."""
+        from repro_torch.core.spec import ServerSpec
+        return ServerSpec.from_engine_config(self)
+
 
 class Engine:
     def __init__(self, ecfg: EngineConfig,
@@ -57,6 +65,9 @@ class Engine:
         self.n_stalled = 0                       # parked on a stall event
         self.lane_busy_ticks = 0
         self.tick_log: list[tuple[int, int, int]] = []  # (t, n_active, qlen)
+        # completion callback (req, finish_tick): the cluster layer feeds
+        # its duration predictor here — only ever finished requests
+        self.on_finish = None
         # model calls made, and this tick's prefill tokens (still on the
         # device until the tick's one copy to the host)
         self.n_prefills = 0
@@ -83,6 +94,28 @@ class Engine:
             req.slot = self.free_slots.pop()
             self.by_slot[req.slot] = req
             self.scheduler.on_arrival(req, self.t)
+
+    # -- cluster-dispatch state (repro_torch.core.dispatch.ServerView) -
+    def outstanding(self) -> int:
+        """Admitted but unfinished requests."""
+        return len(self.by_slot) + len(self.pending_slot)
+
+    def runnable_count(self) -> int:
+        """Requests that could occupy a lane this tick (not stalled)."""
+        if self.n_stalled == 0:          # hot path: no per-request scan
+            return len(self.pending_slot) + len(self.by_slot)
+        n = len(self.pending_slot)
+        for r in self.by_slot.values():
+            if r.stall_until < 0 or r.stall_until <= self.t:
+                n += 1
+        return n
+
+    def free_capacity(self) -> int:
+        """New requests this engine could start running right now —
+        bounded by both free cache slots and idle lanes (pull dispatch)."""
+        slots = len(self.free_slots) - len(self.pending_slot)
+        lanes = self.ecfg.lanes - self.runnable_count()
+        return max(0, min(slots, lanes))
 
     # ------------------------------------------------------------------
     def _run_prefill(self, req: Request):
@@ -181,6 +214,12 @@ class Engine:
                 del self.by_slot[r.slot]
                 r.slot = None
                 self.next_token.pop(r.rid, None)
+                sched = self.scheduler
+                if sched.trace is not None:
+                    sched.trace.emit(t + 1, "complete", r.rid,
+                                     sched.trace_idx)
+                if self.on_finish is not None:
+                    self.on_finish(r, t + 1)
             elif (r.stall_idx < len(r.stall_events)
                   and r.tokens_done >= r.stall_events[r.stall_idx][0]
                   and r.prefill_done):

@@ -1,8 +1,10 @@
-"""Per-request scheduling state of a fleet run, one column per field.
+"""Per-request scheduling state of a cluster run, one column per field.
 
-A copy of ``_RequestStore``, ``_SFS_KW`` and ``VECTOR_POLICIES`` from
-``repro.serving.vector_cluster`` (the JAX package's module, lines
-56-170).  The fleet backend (``serving/torch_cluster.py``) keeps no
+A copy of ``_grow``, ``_RequestStore``, ``_SFS_KW`` and
+``VECTOR_POLICIES`` from ``repro.serving.vector_cluster`` (the JAX
+package's module, lines 56-170), shared by the two group backends.  The
+vector backend (``serving/vector_cluster.py``) steps these columns with
+numpy.  The fleet backend (``serving/torch_cluster.py``) keeps no
 per-request device columns: requests travel with their region rows on
 the device, and finished rows are written back here from the completion
 events, then into their ``Request`` objects at collect time.
@@ -15,7 +17,8 @@ import numpy as np
 
 from repro_torch.serving.request import Request
 
-# sched_kw the sfs group step implements; anything else is refused
+# sched_kw the sfs group step implements; anything else falls back
+# to an object engine (vector) or is refused (torch)
 _SFS_KW = {"slice_ticks", "adaptive_window", "slice_init",
            "overload_factor", "stall_aware", "hinted_demotion"}
 VECTOR_POLICIES = ("sfs", "cfs")

@@ -66,10 +66,18 @@ def test_registry_providers_are_the_port():
 
 def test_engines_of_the_reference_are_not_ported():
     from repro_torch import ExperimentSpec
-    for engine in ("des", "tick", "vector", "jax"):
+    for engine in ("des", "jax"):
         with pytest.raises(ValueError, match="not ported"):
             ExperimentSpec(engine=engine)
     assert ExperimentSpec().engine == "torch"
+
+
+def test_tick_and_vector_engines_are_accepted():
+    from repro_torch import ExperimentSpec
+    for engine in ("tick", "vector", "torch"):
+        assert ExperimentSpec(engine=engine).engine == engine
+    with pytest.raises(ValueError, match="unknown engine"):
+        ExperimentSpec(engine="object")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -77,11 +85,16 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.launch.serve\n"
             "import repro_torch.launch.fleet\n"
             "import repro_torch.serving.torch_cluster\n"
+            "import repro_torch.serving.cluster\n"
+            "import repro_torch.serving.router\n"
+            "import repro_torch.serving.vector_cluster\n"
             "from repro_torch import ExperimentSpec, run_experiment\n"
             "from repro_torch.core.spec import TickWorkloadSpec\n"
-            "run_experiment(ExperimentSpec(servers=('cores=2',) * 2,\n"
-            "    dispatch='sfs-aware', predictor='history',\n"
-            "    workload='bimodal:n=20|zipf:funcs=4'), device='cpu')\n"
+            "for engine in ('torch', 'tick', 'vector'):\n"
+            "    run_experiment(ExperimentSpec(engine=engine,\n"
+            "        servers=('cores=2',) * 2, dispatch='sfs-aware',\n"
+            "        predictor='history',\n"
+            "        workload='bimodal:n=20|zipf:funcs=4'), device='cpu')\n"
             "from repro_torch.serving import Engine, EngineConfig\n"
             "from repro_torch.serving.schedulers import make_scheduler\n"
             "for p in ('sfs', 'cfs', 'fifo', 'srtf'):\n"
@@ -116,9 +129,14 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serving.torch_cluster import TorchCluster
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchCluster([ServerSpec(cores=2)])
+    for engine in ("torch", "tick", "vector"):
+        # the host backends build their engines on the device too
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            repro_torch.run_experiment(repro_torch.ExperimentSpec(
+                engine=engine, servers=("cores=2",),
+                workload=TickWorkloadSpec(n=4)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        repro_torch.run_experiment(repro_torch.ExperimentSpec(
-            servers=("cores=2",), workload=TickWorkloadSpec(n=4)))
+        serve.main(["--requests", "2", "--replicas", "2", "--synthetic"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet.main(["--engines", "2", "--lanes", "2", "--n", "4"])
 

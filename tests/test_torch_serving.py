@@ -149,6 +149,11 @@ def test_serve_main_runs_ssm_and_hybrid_on_cpu(arch):
     assert s["prefills"] == 4 and s["decode_steps"] > 0
 
 
-def test_serve_replicas_not_ported():
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu", "--replicas", "2", "--synthetic"])
+def test_serve_replicas_runs():
+    """``--replicas 2`` runs through the ported router (the name is kept
+    from when the path raised): the workload is spread over both
+    replicas and every request completes."""
+    s = serve.main(["--device", "cpu", "--replicas", "2", "--synthetic"])
+    assert s["n"] == 80 and s["incomplete"] == 0
+    assert sum(s["dispatch_counts"]) == 80
+    assert min(s["dispatch_counts"]) > 0
