@@ -10,12 +10,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
    sm_90a, all at once (ptxas report printed);
 3. each attention kernel against its plain PyTorch version on the card,
-   in float32 (atol = rtol = 2e-5) and bfloat16 (2e-2), at qwen2.5-3b's
-   and zamba2-1.2b's shapes among others (flash: every head dim of the
-   bfloat16 tensor-core kernel and of the float32 one, causal and not,
-   ragged tiles; decode: head dims 16 to 128, kv_len 0 in some rows, with
-   and without the in-flight entry, a short cache and a long one); with
-   kernel, plain and library-call (SDPA) times by CUDA events, kernel and
+   in float32 (atol = rtol = 2e-5) and bfloat16 (2e-2), at qwen2.5-3b's,
+   zamba2-1.2b's, chatglm3-6b's and gemma-7b's shapes among others
+   (flash: every head dim of the bfloat16 tensor-core kernel and of the
+   float32 one up to 256, causal and not, ragged tiles; decode: head dims
+   16 to 256, 1 to 16 query heads per kv head, kv_len 0 in some rows, with
+   and without the in-flight entry, a short cache and a long one, an int8
+   cache with its scales under bfloat16 and float32 q, each call held to
+   the kernel variant its shape calls for); with kernel, plain and
+   library-call (SDPA; for the int8 cache, which no one PyTorch call
+   takes, dequantize + SDPA as context) times by CUDA events, kernel and
    SDPA device-only times (torch.profiler) and the kernel's bound; the
    ssd_scan kernel against its plain version (float32 atol 3e-5 / rtol
    3e-4, bfloat16 x 3e-2) at the serving prefill's shape, a full 256-step
@@ -30,11 +34,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and through the plain attention; the logits must agree within
    1e-3 * max|logits|; then mamba2-1.3b and zamba2-1.2b the same way with
    300-token prompts (two SSD chunks, the second ragged) and one slot
-   inactive in the decode steps;
+   inactive in the decode steps; then chatglm3-6b and gemma-7b (its int8
+   KV cache kept) with 8-token prompts; the kernel path must launch flash
+   once per attention layer and the decode variant its cache calls for
+   once per layer and step;
 5. the main path: ``repro_torch.launch.serve.main`` at full width in
    bfloat16 (48 requests, 4 lanes, 32 slots, max-len 192) on qwen2.5-3b
-   under ``sfs`` and ``cfs``, then on mamba2-1.3b and zamba2-1.2b under
-   ``sfs``: every request completes, no logit is NaN or infinite, every
+   under ``sfs`` and ``cfs``, then on mamba2-1.3b, zamba2-1.2b,
+   chatglm3-6b and gemma-7b (int8 KV cache) under ``sfs``: every request
+   completes, no logit is NaN or infinite, no call reaches a plain
+   attention version, chatglm3-6b and gemma-7b decode only through the
+   kernel variant their cache calls for (``mma``, ``mma_int8``), every
    prefill launched ssd_scan once per Mamba layer and flash-attention once
    per attention layer or shared-block application, every decode step
    launched decode-attention as often, and the schedule (mean, median and
@@ -47,7 +57,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --replicas 2`` run's, and every replica given requests; wall s, ms per
    cluster tick and decode tok/s printed beside the card;
 6. where the time goes: one more serving run of qwen2.5-3b (16
-   requests) and one each of mamba2-1.3b and zamba2-1.2b (8 requests)
+   requests) and one each of mamba2-1.3b, zamba2-1.2b and gemma-7b (8
+   requests)
    under torch.profiler (device activity only), with the card's busy
    share, device operations per tick, the port's kernels' shares and the
    kernels by device time (reported; a Mamba model fails if no ssd_scan
@@ -115,6 +126,10 @@ SSD_TOL = {"float32": dict(atol=3e-5, rtol=3e-4),
            "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 ARCH = "qwen2.5-3b"
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-1.2b")
+# the rest of the dense family at full width: chatglm3-6b (16 query heads
+# per kv head) and gemma-7b (head_dim 256, one query head per kv head,
+# the int8 KV cache of its full config)
+DENSE_ARCHS = ("chatglm3-6b", "gemma-7b")
 # multi-replica serving: two engines over one model behind the router
 REPLICA_ARCHS = ("qwen2.5-3b", "zamba2-1.2b")
 SERVE_ARGS = ["--full", "--device", "cuda", "--requests", "48", "--lanes",
@@ -268,7 +283,18 @@ def check_flash(gen) -> dict:
              ("d32", 2, 96, 4, 1, 32, True, "bfloat16", False),
              ("d16", 1, 130, 4, 2, 16, False, "bfloat16", False),
              ("d16causal", 1, 77, 4, 2, 16, True, "bfloat16", False),
-             ("d16causal", 1, 77, 4, 2, 16, True, "float32", False)]
+             ("d16causal", 1, 77, 4, 2, 16, True, "float32", False),
+             # head_dim 256: gemma-7b's prefill (timed), ragged tiles
+             ("gemma", 1, 8, 16, 16, 256, True, "bfloat16", True),
+             ("gemma", 1, 8, 16, 16, 256, True, "float32", False),
+             ("d256", 2, 100, 4, 2, 256, False, "bfloat16", False),
+             ("d256", 2, 100, 4, 2, 256, False, "float32", False),
+             ("d256causal", 1, 130, 4, 4, 256, True, "bfloat16", False),
+             ("d256causal", 1, 130, 4, 4, 256, True, "float32", False),
+             ("d256long", 1, 1024, 16, 16, 256, True, "bfloat16", True),
+             # chatglm3-6b's prefill: 16 query heads per kv head
+             ("chatglm3", 1, 8, 32, 2, 128, True, "bfloat16", False),
+             ("chatglm3", 1, 8, 32, 2, 128, True, "float32", False)]
     main = None
     for label, B, S, H, K, D, causal, dtype, timed in cases:
         dt = getattr(torch, dtype)
@@ -279,7 +305,7 @@ def check_flash(gen) -> dict:
         torch.cuda.synchronize()
         err = compare(f"flash {label} {dtype}", out,
                       flash_attention_ref(q, k, v, causal=causal), dtype)
-        line = (f"[flash] {label:9s} B={B} S={S} H={H} K={K} D={D} "
+        line = (f"[flash] {label:10s} B={B} S={S} H={H} K={K} D={D} "
                 f"causal={causal} {dtype}: max_abs_err={err:.3g}")
         if timed:
             iters = 200 if S <= 256 else 20
@@ -313,76 +339,122 @@ def check_flash(gen) -> dict:
     return main
 
 
+MMA_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+
+
+def decode_variant(dtype: str, D: int, int8: bool) -> str:
+    """The decode kernel the entry point must choose (aligned tensors)."""
+    mma = dtype == "bfloat16" and D in MMA_HEAD_DIMS
+    return ("mma" if mma else "fma") + ("_int8" if int8 else "")
+
+
 def check_decode(gen) -> dict:
     """Kernel vs plain at qwen2.5-3b's decode shape (timed; returns its
-    record), zamba2-1.2b's (timed and printed), a long cache with few
+    record), zamba2-1.2b's, chatglm3-6b's (16 query heads per kv head) and
+    gemma-7b's (head_dim 256, one query head per kv head; with its int8
+    cache and scales too), all timed and printed, a long cache with few
     sequences (timed and printed: B * K blocks leave most SMs idle there,
     the case a split of the prefix would serve) and small shapes: head
-    dims 16 to 80 (36 and 40 take the FMA kernel in bfloat16 too), 1 to 16
-    query heads per kv head, a short cache.  Every shape has an empty, a
-    full and a one-row prefix."""
+    dims 16 to 256 (36, 40 and 48 take the FMA kernel in bfloat16 too), 1
+    to 16 query heads per kv head, a short cache, int8 caches.  Every
+    shape has an empty, a full and a one-row prefix, and every call must
+    launch the variant the shape and dtype call for."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    # (label, B, Smax, H, K, D, timed)
-    cases = [("main", 32, 192, 16, 2, 128, True),
-             ("zamba2", 32, 192, 32, 32, 64, True),
-             ("long", 6, 4096, 16, 2, 128, True),
-             ("d80", 8, 130, 8, 2, 80, False),
-             ("d40", 8, 130, 8, 2, 40, False),
-             ("d36", 8, 130, 8, 2, 36, False),
-             ("d32", 8, 70, 4, 1, 32, False),
-             ("d16", 8, 70, 32, 2, 16, False),
-             ("short", 8, 48, 16, 2, 128, False)]
+    from repro_torch.models.layers import quantize_kv
+    # (label, B, Smax, H, K, D, timed, int8 cache)
+    cases = [("main", 32, 192, 16, 2, 128, True, False),
+             ("zamba2", 32, 192, 32, 32, 64, True, False),
+             ("chatglm3", 32, 192, 32, 2, 128, True, False),
+             ("gemma", 32, 192, 16, 16, 256, True, False),
+             ("gemma", 32, 192, 16, 16, 256, True, True),
+             ("long", 6, 4096, 16, 2, 128, True, False),
+             ("d256", 8, 130, 8, 4, 256, False, False),
+             ("g16", 8, 130, 32, 2, 128, False, True),
+             ("d64", 8, 70, 8, 2, 64, False, True),
+             ("d48", 4, 70, 4, 2, 48, False, True),
+             ("d80", 8, 130, 8, 2, 80, False, False),
+             ("d40", 8, 130, 8, 2, 40, False, False),
+             ("d36", 8, 130, 8, 2, 36, False, False),
+             ("d32", 8, 70, 4, 1, 32, False, False),
+             ("d16", 8, 70, 32, 2, 16, False, False),
+             ("short", 8, 48, 16, 2, 128, False, False)]
     main = None
-    for label, B, Smax, H, K, D, timed in cases:
+    for label, B, Smax, H, K, D, timed, int8 in cases:
         lens = torch.randint(1, Smax + 1, (B,), generator=gen, device="cuda")
         lens[0], lens[1], lens[2] = 0, Smax, 1
         kv_len = lens.to(torch.int32)
+        if int8:
+            kc, ks = quantize_kv(torch.randn(B, Smax, K, D, generator=gen,
+                                             device="cuda"))
+            vc, vs = quantize_kv(2 * torch.randn(B, Smax, K, D,
+                                                 generator=gen,
+                                                 device="cuda"))
+            scales = dict(k_scale=ks, v_scale=vs)
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q = torch.randn(B, H, D, generator=gen, device="cuda").to(dt)
-            kc = torch.randn(B, Smax, K, D, generator=gen,
-                             device="cuda").to(dt)
-            vc = torch.randn(B, Smax, K, D, generator=gen,
-                             device="cuda").to(dt)
+            if not int8:
+                kc = torch.randn(B, Smax, K, D, generator=gen,
+                                 device="cuda").to(dt)
+                vc = torch.randn(B, Smax, K, D, generator=gen,
+                                 device="cuda").to(dt)
+                scales = {}
             kn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
             vn = torch.randn(B, K, D, generator=gen, device="cuda").to(dt)
+            variant = decode_variant(dtype, D, int8)
             for extra in (True, False):
                 args = (q, kc, vc, kv_len) + ((kn, vn) if extra else ())
-                out = dk.decode_attention_cuda(*args)
+                before = dict(dk.variant_launches)
+                out = dk.decode_attention_cuda(*args, **scales)
                 torch.cuda.synchronize()
-                what = f"decode {label} extra={extra} {dtype}"
-                err = compare(what, out, decode_attention_ref(*args), dtype)
+                cache = "int8" if int8 else dtype
+                what = f"decode {label} extra={extra} {dtype} {cache} cache"
+                ran = [v for v, n in dk.variant_launches.items()
+                       if n != before[v]]
+                if ran != [variant]:
+                    fail(f"{what}: launched {ran}, expected {variant}")
+                err = compare(what, out,
+                              decode_attention_ref(*args, **scales), dtype)
                 if not extra and not out[0].eq(0).all():
                     fail(f"{what}: kv_len = 0 without the in-flight entry "
                          "must give zeros")
-                line = (f"[decode] {label:6s} B={B} Smax={Smax} H={H} K={K} "
-                        f"D={D} extra={extra} {dtype}: max_abs_err={err:.3g}")
+                line = (f"[decode] {label:8s} B={B} Smax={Smax} H={H} K={K} "
+                        f"D={D} extra={extra} {dtype} q, {cache} cache "
+                        f"({variant}): max_abs_err={err:.3g}")
                 if timed and dtype == "bfloat16" and extra:
                     def kern():
-                        return dk.decode_attention_cuda(*args)
+                        return dk.decode_attention_cuda(*args, **scales)
                     mask = (torch.arange(Smax, device="cuda")[None, :]
                             < kv_len[:, None])[:, None, None, :]
                     qt = q[:, :, None, :]
-                    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
 
                     def sdpa():
+                        if int8:     # context: dequantize, then SDPA
+                            kt = (kc * ks[..., None]).to(dt).transpose(1, 2)
+                            vt = (vc * vs[..., None]).to(dt).transpose(1, 2)
+                        else:
+                            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
                         return F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask, enable_gqa=True)
                     ms = time_ms(kern, 500)
-                    plain = time_ms(lambda: decode_attention_ref(*args), 200)
+                    plain = time_ms(lambda: decode_attention_ref(
+                        *args, **scales), 200)
                     lib = time_ms(sdpa, 200)
                     dev, lib_dev = device_ms(kern, 200), device_ms(sdpa, 200)
                     el = q.element_size()
                     n = kv_len.clamp(0, Smax).sum().item()
                     nbytes = (2 * q.numel() * el + kv_len.numel() * 4
-                              + 2 * n * K * D * el + 2 * kn.numel() * el)
+                              + 2 * n * K * D * kc.element_size()
+                              + (2 * n * K * 4 if int8 else 0)
+                              + 2 * kn.numel() * el)
                     b_ms, b_by = bound(nbytes, 4 * H * D * (n + B), dtype)
+                    lib_name = "dequant_sdpa" if int8 else "sdpa"
                     line += (f" ms={ms:.4f} device_ms={dev:.5f} "
-                             f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-                             f"sdpa_device_ms={lib_dev:.5f} "
+                             f"plain_ms={plain:.4f} {lib_name}_ms={lib:.4f} "
+                             f"{lib_name}_device_ms={lib_dev:.5f} "
                              f"bound_ms={b_ms:.6f} ({b_by})")
                     if label == "main":
                         main = dict(max_abs_err=err, ms=ms, device_ms=dev,
@@ -529,11 +601,16 @@ def check_ssd(gen) -> dict:
 
 def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
     """Kernel path vs plain path, full width, float32: a prefill of 4
-    prompts and 3 decode steps with the last slot inactive."""
+    prompts and 3 decode steps with the last slot inactive; the kernel
+    path launches flash once per attention layer (or shared-block
+    application) of the prefill and decode once per such layer of each
+    step (an int8 cache: the FMA kernel's int8 variant, float32 q)."""
     import torch
     from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models.transformer import Transformer, n_shared_apps
     cfg = configs.get(arch).replace(dtype="float32", attn_impl="kernel")
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda",
@@ -546,10 +623,14 @@ def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
                           device="cuda")
     active = torch.tensor([True, True, True, False], device="cuda")
     n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"dense": cfg.n_layers, "hybrid": n_shared_apps(cfg)}.get(
+        cfg.family, 0)
+    variant = decode_variant("float32", cfg.head_dim, cfg.int8_cache)
     runs = {}
     for impl in ("kernel", "dense"):
         model.set_attn_impl(impl)
-        sk.launches = 0
+        sk.launches = fk.launches = 0
+        dk.variant_launches.update(dict.fromkeys(dk.VARIANTS, 0))
         cache, logits = model.prefill(prompts, max_len)
         if sk.launches != (n_mamba if impl == "kernel" else 0):
             fail(f"{arch} {impl} prefill: {sk.launches} ssd_scan launches "
@@ -559,6 +640,16 @@ def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
             cache, logits = model.decode_step(cache, tok, active=active)
             out.append(logits[:, 0])
         runs[impl] = torch.stack(out).float()
+        on = impl == "kernel"
+        want = {v: (len(steps) * n_attn if on and v == variant else 0)
+                for v in dk.VARIANTS}
+        if fk.launches != (n_attn if on else 0) or \
+                dk.variant_launches != want:
+            fail(f"{arch} {impl}: flash launched {fk.launches} times, "
+                 f"decode {dk.variant_launches}; expected "
+                 f"{n_attn if on else 0} and {want}")
+    if cfg.int8_cache and cache["k"].dtype != torch.int8:
+        fail(f"{arch}: the cache is {cache['k'].dtype}, not int8")
     torch.cuda.synchronize()
     a, b = runs["kernel"], runs["dense"]
     if not torch.isfinite(a).all() or a.shape != (4, 4, cfg.vocab_padded):
@@ -568,7 +659,9 @@ def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
     err = (a - b).abs().max().item()
     top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     print(f"[model] {arch} full width float32, {n_params / 1e9:.3f} B "
-          f"params, {prompt_len}-token prompts: kernel vs plain "
+          f"params, {cache['k'].dtype if 'k' in cache else 'no'} KV cache "
+          f"(decode {variant} x{len(steps) * n_attn}), "
+          f"{prompt_len}-token prompts: kernel vs plain "
           f"max|dlogits|={err:.3g} (limit {1e-3 * scale:.3g} = "
           f"1e-3*max|logits|), top-1 agreement {top1:.3f} over "
           f"{a.shape[0] * a.shape[1]} positions, "
@@ -583,11 +676,39 @@ SCHEDULE_KEYS = ("mean_turnaround", "median_turnaround", "p99_turnaround",
                  "mean_rte", "total_ctx")
 
 
+def count_plain_calls(counts: dict):
+    """Wrap the attention kernels' plain versions and the model's plain
+    attention layers so that each call adds one to ``counts``; returns a
+    function that puts the originals back."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import layers
+    targets = [(dops, "decode_attention_ref"), (fops, "flash_attention_ref"),
+               (layers, "decode_attention"), (layers, "dense_attention")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapper
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return restore
+
+
 def run_main_path(arch: str, policies, replicas: int = 1,
                   card: str = "") -> dict:
     """serve.main on ``arch`` under each policy, over ``replicas`` engines
     (behind the router when more than one); returns launches per kernel,
-    summed over the policies and the engines."""
+    summed over the policies and the engines.  Decode launches are also
+    counted by variant (``mma``, ``mma_int8``, ...; the dense family must
+    run only the one its cache calls for), and no call may reach a plain
+    attention version."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -596,6 +717,7 @@ def run_main_path(arch: str, policies, replicas: int = 1,
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer, n_shared_apps
     cfg = configs.get(arch)
+    variant = decode_variant(cfg.dtype, cfg.head_dim, cfg.int8_cache)
     # kernel launches per prefill (ssd_scan, flash) and per decode step
     n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_attn = {"dense": cfg.n_layers, "hybrid": n_shared_apps(cfg)}.get(
@@ -611,17 +733,22 @@ def run_main_path(arch: str, policies, replicas: int = 1,
         return logits
 
     totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    plain = {}
     Transformer._logits = checked_logits
+    restore = count_plain_calls(plain)
     try:
         for policy in policies:
             args = SERVE_ARGS + ["--arch", arch, "--policy", policy]
             if replicas > 1:
                 args += ["--replicas", str(replicas)]
             finite.clear()
+            plain.clear()
             fk.launches = dk.launches = sk.launches = 0
+            dk.variant_launches.update(dict.fromkeys(dk.VARIANTS, 0))
             s = serve.main(args)
             n = {"flash_attention": fk.launches,
                  "decode_attention": dk.launches, "ssd_scan": sk.launches}
+            variants = {v: c for v, c in dk.variant_launches.items() if c}
             ok = bool(torch.stack(finite).all()) if finite else False
             synth = serve.main(args + ["--synthetic"])
             keys = SCHEDULE_KEYS + (("dispatch_counts",) if replicas > 1
@@ -633,7 +760,8 @@ def run_main_path(arch: str, policies, replicas: int = 1,
                   f"wall_s={s['wall_s']:.3f} ticks={s['ticks']} "
                   f"ms_per_tick={1e3 * s['wall_s'] / s['ticks']:.2f} "
                   f"prefills={s['prefills']} "
-                  f"decode_steps={s['decode_steps']} launches {n}"
+                  f"decode_steps={s['decode_steps']} launches {n} "
+                  f"decode variants {variants}"
                   + (f" dispatch_counts={s['dispatch_counts']}"
                      if replicas > 1 else "")
                   + f"; schedule == --synthetic run: {same}"
@@ -654,6 +782,12 @@ def run_main_path(arch: str, policies, replicas: int = 1,
                      "attention layers)")
             if any(per[k] and n[k] == 0 for k in per):
                 fail(f"{arch} {policy}: a kernel of the path never ran")
+            if plain:
+                fail(f"{arch} {policy}: plain attention ran: {plain}")
+            if arch in DENSE_ARCHS and variants != {
+                    variant: n["decode_attention"]}:
+                fail(f"{arch} {policy}: decode variants {variants}, "
+                     f"expected only {variant}")
             if not same:
                 fail(f"{arch} {policy}: schedule differs from the "
                      "--synthetic run: " + ", ".join(
@@ -666,6 +800,7 @@ def run_main_path(arch: str, policies, replicas: int = 1,
                 totals[key] += n[key]
     finally:
         Transformer._logits = plain_logits
+        restore()
     return totals
 
 
@@ -1188,17 +1323,19 @@ def main(argv=None) -> int:
     phase(f"{ARCH} full width", check_full_model, ARCH, 8, 192)
     for arch in SSM_ARCHS:
         phase(f"{arch} full width", check_full_model, arch, 300, 320)
+    for arch in DENSE_ARCHS:
+        phase(f"{arch} full width", check_full_model, arch, 8, 192)
     launches = phase(f"{ARCH} serving", run_main_path, ARCH, ("sfs", "cfs"))
-    for arch in SSM_ARCHS:
+    for arch in SSM_ARCHS + DENSE_ARCHS:
         for name, n in phase(f"{arch} serving", run_main_path, arch,
-                             ("sfs",)).items():
+                             ("sfs",), 1, card).items():
             launches[name] += n
     for arch in REPLICA_ARCHS:
         for name, n in phase(f"{arch} replicas", run_main_path, arch,
                              ("sfs",), 2, card).items():
             launches[name] += n
     phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
-    for arch in SSM_ARCHS:
+    for arch in SSM_ARCHS + ("gemma-7b",):
         phase(f"{arch} profile", profile_main_path, arch, 8)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)

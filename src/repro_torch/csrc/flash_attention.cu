@@ -9,7 +9,7 @@
 //
 // Layout is the model's: q [B, Sq, H, D], k and v [B, Skv, K, D] with
 // K dividing H (query head h reads kv head h / (H / K)), o [B, Sq, H, D],
-// all contiguous, float32 or bfloat16.  D in {16, 32, 64, 80, 128}.
+// all contiguous, float32 or bfloat16.  D in {16, 32, 64, 80, 128, 256}.
 // Unlike the TPU kernel, a ragged last tile (Sq or Skv not a multiple of
 // the tile) is masked here rather than refused.
 //
@@ -24,7 +24,14 @@
 //   tile borrows a K/V buffer.  K and V tiles of 64 keys arrive in bf16
 //   through a double-buffered cp.async ring in shared memory (rows padded
 //   by 16 bytes, so the ldmatrix rows do not conflict on banks), the next
-//   tile loading while the current one is used.  S = Q.K^T stays in the
+//   tile loading while the current one is used.  At D = 256 a warp's O
+//   accumulators alone take 128 registers a thread, so its queries stay
+//   in a shared-memory tile of their own and their fragments are read
+//   again for each 16 columns of every key tile (a quarter more ldmatrix
+//   traffic than K's) instead of being held in registers, and the online
+//   softmax takes each key tile in two steps of 32 keys (S's
+//   accumulators halved), which keeps the kernel within 255 registers
+//   without spills.  S = Q.K^T stays in the
 //   accumulator fragments; the online softmax runs on them in fp32 (row
 //   max and sum over the four lanes of a quad), and P is rounded to bf16
 //   in registers to become the A operand of O += P.V (V through
@@ -37,9 +44,10 @@
 //   wgmma would.
 // - float32, flash_fwd_kernel<float, D>: fp32 FMAs out of shared memory
 //   (K and V staged as fp32, one padding float per row; four threads per
-//   query row).  Tensor cores would take TF32 for fp32 inputs, which
-//   keeps ~3 decimal digits and breaks the 2e-5 tolerance the float32
-//   checks hold, so float32 stays on the FMA units.
+//   query row; at D = 256 the tiles take 213,760 bytes, one block an
+//   SM).  Tensor cores would take TF32 for fp32 inputs, which keeps ~3
+//   decimal digits and breaks the 2e-5 tolerance the float32 checks
+//   hold, so float32 stays on the FMA units.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -229,9 +237,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 constexpr int MMA_LD = D + 8;               // bf16 row stride in shared
 
+// q's A fragments stay in registers up to D = 128; at D = 256 the 128
+// registers a thread holds of O leave no room for them
 template <int D>
-constexpr size_t mma_smem_bytes() {         // 2 x (K, V) tiles; Q in V's 2nd
-  return sizeof(__nv_bfloat16) * size_t(MMA_LD<D>) * 4 * BK;
+constexpr bool Q_IN_REGS = D <= 128;
+
+// 2 x (K, V) tiles; Q in V's second buffer until tile 1 loads, or, when
+// its fragments are not held in registers, in a tile of its own after V
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * size_t(MMA_LD<D>) *
+         (4 * BK + (Q_IN_REGS<D> ? 0 : BQ));
 }
 
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): the
@@ -246,12 +262,17 @@ __global__ void __launch_bounds__(NT_MMA)
                      int K, float scale_log2, int causal) {
   constexpr int LD = MMA_LD<D>;
   constexpr int CH = D / 8;        // 16-byte chunks per row
-  constexpr int NKT = BK / 8;      // 8-key column tiles of S
+  // keys per softmax step: the whole tile, or at D = 256 half of it, so
+  // that S's accumulators (KW / 2 a thread) fit beside O's 128 without
+  // spilling
+  constexpr int KW = Q_IN_REGS<D> ? BK : BK / 2;
+  constexpr int NKT = KW / 8;      // 8-key column tiles of S
   constexpr int NDT = D / 8;       // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + 2 * BK * LD;    // [2][BK][LD]
-  __nv_bfloat16* Qs = Vs + BK * LD;        // [BQ][LD], until tile 1 loads
+  __nv_bfloat16* Qs =                      // [BQ][LD]
+      Vs + (Q_IN_REGS<D> ? BK * LD : 2 * BK * LD);
   static_assert(BQ == BK, "Q borrows the second V buffer");
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -288,7 +309,7 @@ __global__ void __launch_bounds__(NT_MMA)
 
     const int wq0 = q0 + warp * 16;          // this warp's first query row
     const int row_a = wq0 + lane / 4, row_b = row_a + 8;
-    uint32_t qf[D / 16][4];
+    uint32_t qf[Q_IN_REGS<D> ? D / 16 : 1][4];
     float acc[NDT][4];
 #pragma unroll
     for (int j = 0; j < NDT; ++j)
@@ -298,12 +319,14 @@ __global__ void __launch_bounds__(NT_MMA)
     for (int t = 0; t < n_tiles; ++t) {
       cp_async_wait<0>();    // tile t (and, before tile 0, Q)
       __syncthreads();       // ... for every thread; tile t - 1 is done with
-      if (t == 0) {
+      if constexpr (Q_IN_REGS<D>) {
+        if (t == 0) {
 #pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc)
-          ldmatrix_x4(qf[kc], Qs + (warp * 16 + (lane & 15)) * LD + kc * 16 +
-                                  (lane >> 4) * 8);
-        __syncthreads();     // Q's buffer is free for tile 1
+          for (int kc = 0; kc < D / 16; ++kc)
+            ldmatrix_x4(qf[kc], Qs + (warp * 16 + (lane & 15)) * LD +
+                                    kc * 16 + (lane >> 4) * 8);
+          __syncthreads();   // Q's buffer is free for tile 1
+        }
       }
       if (t + 1 < n_tiles) { // the next tile lands while this one is used
         load_kv(t + 1);
@@ -312,87 +335,100 @@ __global__ void __launch_bounds__(NT_MMA)
       const __nv_bfloat16* Kt = Ks + (t & 1) * BK * LD;
       const __nv_bfloat16* Vt = Vs + (t & 1) * BK * LD;
 
-      float s[NKT][4];
+#pragma unroll 1
+      for (int h0 = 0; h0 < BK; h0 += KW) {
+        float s[NKT][4];
 #pragma unroll
-      for (int j = 0; j < NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int j = 0; j < NKT; ++j)
+          s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint32_t qa[4];
+          if constexpr (Q_IN_REGS<D>) {
 #pragma unroll
-        for (int np = 0; np < NKT / 2; ++np) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                              kc * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
-        }
-      }
-
-      // scale into log2 units; mask the ragged end and, on the diagonal,
-      // the keys above each row
-      const int k0 = t * BK;
-      const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > wq0);
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float x = s[j][i] * scale_log2;
-          if (masked) {
-            const int kpos = k0 + j * 8 + 2 * (lane & 3) + (i & 1);
-            const int qpos = i < 2 ? row_a : row_b;
-            if (kpos >= Skv || (causal && kpos > qpos)) x = -INFINITY;
+            for (int i = 0; i < 4; ++i) qa[i] = qf[kc][i];
+          } else {
+            ldmatrix_x4(qa, Qs + (warp * 16 + (lane & 15)) * LD + kc * 16 +
+                                (lane >> 4) * 8);
           }
-          s[j][i] = x;
+#pragma unroll
+          for (int np = 0; np < NKT / 2; ++np) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, Kt + (h0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                     LD + kc * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          }
         }
-        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
-      }
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      // a row with every key so far masked subtracts 0: exp2(-inf) = 0
-      const float sub_a = mn_a == -INFINITY ? 0.f : mn_a;
-      const float sub_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float corr_a = exp2f(m_a - sub_a), corr_b = exp2f(m_b - sub_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float ps_a = 0.f, ps_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        s[j][0] = exp2f(s[j][0] - sub_a);
-        s[j][1] = exp2f(s[j][1] - sub_a);
-        s[j][2] = exp2f(s[j][2] - sub_b);
-        s[j][3] = exp2f(s[j][3] - sub_b);
-        ps_a += s[j][0] + s[j][1];
-        ps_b += s[j][2] + s[j][3];
-      }
-      l_a = l_a * corr_a + ps_a;     // this lane's columns; summed at the end
-      l_b = l_b * corr_b + ps_b;
-#pragma unroll
-      for (int j = 0; j < NDT; ++j) {
-        acc[j][0] *= corr_a;
-        acc[j][1] *= corr_a;
-        acc[j][2] *= corr_b;
-        acc[j][3] *= corr_b;
-      }
 
-      // O += P.V: two 8-key accumulator tiles of S make one A fragment
+        // scale into log2 units; mask the ragged end and, on the diagonal,
+        // the keys above each row
+        const int k0 = t * BK + h0;
+        const bool masked = k0 + KW > Skv || (causal && k0 + KW - 1 > wq0);
+        float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                                pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                                pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                                pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+        for (int j = 0; j < NKT; ++j) {
 #pragma unroll
-        for (int dp = 0; dp < NDT / 2; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, Vt + (kc * 16 + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8) * LD +
-                                    dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-          mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+          for (int i = 0; i < 4; ++i) {
+            float x = s[j][i] * scale_log2;
+            if (masked) {
+              const int kpos = k0 + j * 8 + 2 * (lane & 3) + (i & 1);
+              const int qpos = i < 2 ? row_a : row_b;
+              if (kpos >= Skv || (causal && kpos > qpos)) x = -INFINITY;
+            }
+            s[j][i] = x;
+          }
+          mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        // a row with every key so far masked subtracts 0: exp2(-inf) = 0
+        const float sub_a = mn_a == -INFINITY ? 0.f : mn_a;
+        const float sub_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float corr_a = exp2f(m_a - sub_a), corr_b = exp2f(m_b - sub_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < NKT; ++j) {
+          s[j][0] = exp2f(s[j][0] - sub_a);
+          s[j][1] = exp2f(s[j][1] - sub_a);
+          s[j][2] = exp2f(s[j][2] - sub_b);
+          s[j][3] = exp2f(s[j][3] - sub_b);
+          ps_a += s[j][0] + s[j][1];
+          ps_b += s[j][2] + s[j][3];
+        }
+        l_a = l_a * corr_a + ps_a;     // this lane's columns; summed at the end
+        l_b = l_b * corr_b + ps_b;
+#pragma unroll
+        for (int j = 0; j < NDT; ++j) {
+          acc[j][0] *= corr_a;
+          acc[j][1] *= corr_a;
+          acc[j][2] *= corr_b;
+          acc[j][3] *= corr_b;
+        }
+
+        // O += P.V: two 8-key accumulator tiles of S make one A fragment
+#pragma unroll
+        for (int kc = 0; kc < KW / 16; ++kc) {
+          const uint32_t pa[4] = {
+              pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+          for (int dp = 0; dp < NDT / 2; ++dp) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, Vt + (h0 + kc * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * LD +
+                                      dp * 16 + (lane >> 4) * 8);
+            mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+            mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+          }
         }
       }
     }
@@ -497,6 +533,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 64: return launch<64>(dtype, q, k, v, o, B, Sq, Skv, H, K, scale, causal, s);
     case 80: return launch<80>(dtype, q, k, v, o, B, Sq, Skv, H, K, scale, causal, s);
     case 128: return launch<128>(dtype, q, k, v, o, B, Sq, Skv, H, K, scale, causal, s);
+    case 256: return launch<256>(dtype, q, k, v, o, B, Sq, Skv, H, K, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

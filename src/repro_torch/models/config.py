@@ -80,8 +80,13 @@ class ModelConfig:
     n_prefix: int = 0                # vlm: vision-embedding positions
     # ---- attention implementation and dtypes (not architecture) ----
     attn_impl: str = "kernel"        # dense | kernel
-    # dtype of parameters, activations and the KV cache
+    # dtype of parameters and activations, and of the KV cache unless
+    # kv_cache_dtype is "int8"
     dtype: str = "bfloat16"
+    # KV-cache storage: "bfloat16" keeps the model's dtype; "int8" stores
+    # int8 keys and values with per-token-head float32 scales (halves the
+    # bytes a decode step reads).  The hybrid family ignores it.
+    kv_cache_dtype: str = "bfloat16"
 
     def __post_init__(self):
         assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm",
@@ -96,6 +101,9 @@ class ModelConfig:
         if self.attn_impl not in ("dense", "kernel"):
             raise ValueError(f"attn_impl must be 'dense' or 'kernel', "
                              f"got {self.attn_impl!r}")
+        if self.kv_cache_dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'bfloat16' or "
+                             f"'int8', got {self.kv_cache_dtype!r}")
 
     @property
     def causal(self) -> bool:
@@ -104,6 +112,11 @@ class ModelConfig:
     @property
     def has_decode(self) -> bool:
         return self.family != "audio"
+
+    @property
+    def int8_cache(self) -> bool:
+        """Whether the serving cache holds int8 keys and values."""
+        return self.kv_cache_dtype == "int8" and self.family != "hybrid"
 
     @property
     def vocab_padded(self) -> int:

@@ -9,7 +9,8 @@ the transpose of the reference's ``[in, out]``.
 Attention comes in two implementations, chosen by ``ModelConfig.attn_impl``:
 
 * ``dense``  — the plain O(S^2) attention below (``dense_attention``,
-               ``decode_attention``)
+               ``decode_attention``, which also reads an int8 cache
+               quantized by ``quantize_kv``)
 * ``kernel`` — the hand-written CUDA kernels (``repro_torch.kernels``),
                which take their plain versions only for CPU tensors
 """
@@ -208,6 +209,8 @@ def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
                      extra_kv: Optional[tuple] = None) -> torch.Tensor:
     """Single-position attention against a (padded) KV cache.
 
@@ -215,11 +218,18 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     valid cache positions.  ``extra_kv`` is the in-flight token's
     (k_new, v_new) [B,1,K,D], attended in addition to the kv_len cache
     entries (the deferred-commit path).
+
+    int8 cache: pass the per-token-head ``k_scale``/``v_scale``
+    [B,Smax,K]; they fold into the scores (before the mask) and into the
+    softmax weights (after it), so no dequantized copy of the cache is
+    formed.  The in-flight entry is not quantized.
     """
     B, _, H, D = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, K, H // K, D).float() * (1.0 / math.sqrt(D))
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    if k_scale is not None:
+        s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
     valid = torch.arange(Smax, device=q.device)[None, :] < kv_len.reshape(B, 1)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     if extra_kv is not None:
@@ -227,8 +237,20 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         s_x = torch.einsum("bkgd,bxkd->bkgx", qg, k_new.float())
         s = torch.cat([s, s_x], dim=-1)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p[..., :Smax], v_cache.float())
+    p, p_x = p[..., :Smax], p[..., Smax:]
+    if v_scale is not None:
+        p = p * v_scale.float().transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     if extra_kv is not None:
-        out = out + torch.einsum("bkgx,bxkd->bkgd", p[..., Smax:],
-                                 v_new.float())
+        out = out + torch.einsum("bkgx,bxkd->bkgd", p_x, v_new.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-head symmetric int8. x: [..., K, D] -> (q int8,
+    scale float32 [..., K]).  The reference's rounding: divide by the
+    scale (floored at 1e-8), round half to even, clip to +-127."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s

@@ -14,7 +14,9 @@ params with ``lax.scan``, the port keeps one module per layer in an
 
 The serving cache is a dict of tensors, ``{"pos": [B] int32}`` plus, by
 family, ``"k"/"v": [L or n_apps, B, Smax, K, D]`` and ``"ssm_h": [L, B,
-H, P, N]`` (float32), ``"conv_tail": [L, B, W-1, ch]``; ``decode_step``
+H, P, N]`` (float32), ``"conv_tail": [L, B, W-1, ch]``; with
+``kv_cache_dtype="int8"`` (dense family) ``"k"/"v"`` are int8 beside
+float32 ``"k_scale"/"v_scale": [L, B, Smax, K]``.  ``decode_step``
 updates it in place (the reference returns a new cache and donates the old
 one to XLA).
 
@@ -75,10 +77,11 @@ class DecoderBlock(nn.Module):
                 kv_cache: Optional[tuple] = None,
                 cache_pos: Optional[torch.Tensor] = None):
         """Full-sequence mode (kv_cache None) or decode mode (x [B,1,d]
-        against the read-only (k_cache, v_cache) of this layer).
+        against the read-only (k_cache, v_cache) of this layer, or
+        (k_cache, v_cache, k_scale, v_scale) for an int8 cache).
 
-        Returns (x_out, (k, v)): this block's keys and values, for the
-        caller to store (prefill) or commit (decode).
+        Returns (x_out, (k, v)): this block's keys and values, not
+        quantized, for the caller to store (prefill) or commit (decode).
         """
         h = self.ln1(x)
         q, k, v = self.attn.proj(h)
@@ -92,13 +95,15 @@ class DecoderBlock(nn.Module):
         else:
             # deferred commit: attend over the cache plus the in-flight
             # token's (k, v); the caller writes them into the cache after
-            k_cache, v_cache = kv_cache
+            k_cache, v_cache, *scales = kv_cache
+            k_scale, v_scale = scales or (None, None)
             if self.attn_impl == "kernel":
                 o = decode_ops.decode_attention(
-                    q[:, 0], k_cache, v_cache, cache_pos,
-                    k[:, 0], v[:, 0])[:, None]
+                    q[:, 0], k_cache, v_cache, cache_pos, k[:, 0], v[:, 0],
+                    k_scale=k_scale, v_scale=v_scale)[:, None]
             else:
                 o = L.decode_attention(q, k_cache, v_cache, cache_pos,
+                                       k_scale=k_scale, v_scale=v_scale,
                                        extra_kv=(k, v))
         x = x + self.attn.out(o)
         x = x + self.mlp(self.ln2(x))
@@ -141,13 +146,48 @@ def _keep_inactive(dst: torch.Tensor, new: torch.Tensor,
         dst.copy_(torch.where(sel, new.to(dst.dtype), dst))
 
 
+def _kv_keys(cache: dict) -> tuple:
+    """The attention cache's entries: ("k", "v"), and for an int8 cache
+    their scales after them."""
+    return ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+        else ("k", "v")
+
+
+def _kv_entries(cache: dict, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """One layer's new keys and values as the cache stores them, in the
+    order of ``_kv_keys``: (k, v), or for an int8 cache the quantized
+    (k, v, k_scale, v_scale)."""
+    if "k_scale" not in cache:
+        return k, v
+    kq, ks = L.quantize_kv(k)
+    vq, vs = L.quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+def _store_layer(cache: dict, i: int, k: torch.Tensor, v: torch.Tensor
+                 ) -> None:
+    """Write a prefill's keys and values [B,S,K,D] of layer (or
+    application) ``i`` at positions 0..S-1."""
+    S = k.shape[1]
+    for key, val in zip(_kv_keys(cache), _kv_entries(cache, k, v)):
+        cache[key][i, :, :S] = val
+
+
+def _commit_layer(cache: dict, i: int, k: torch.Tensor, v: torch.Tensor,
+                  pos: torch.Tensor) -> None:
+    """Commit layer (or application) ``i``'s new entries at ``pos``."""
+    for key, val in zip(_kv_keys(cache), _kv_entries(cache, k, v)):
+        _commit_kv(cache[key][i], val, pos)
+
+
 def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
                pos: torch.Tensor) -> None:
     """Write one layer's new entries into its cache at per-sequence
     ``pos``, in place.
 
-    cache_arr: [B,Smax,...]; new_vals: [B,1,...]; pos: [B].  A position
-    past the end writes the last slot, as the reference's
+    cache_arr: [B,Smax,...] (keys or values, [B,Smax,K,D], or an int8
+    cache's scales, [B,Smax,K]); new_vals: [B,1,...]; pos: [B].  A
+    position past the end writes the last slot, as the reference's
     ``dynamic_update_slice`` clamps its start index.
     """
     B, Smax = cache_arr.shape[:2]
@@ -291,8 +331,13 @@ class Transformer(nn.Module):
         if c.family != "ssm":
             nl = n_shared_apps(c) if c.family == "hybrid" else c.n_layers
             shape = (nl, batch_size, max_len, c.n_kv_heads, c.head_dim)
-            cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
-            cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+            kv_dt = torch.int8 if c.int8_cache else dt
+            cache["k"] = torch.zeros(shape, dtype=kv_dt, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=kv_dt, device=dev)
+            if c.int8_cache:
+                for key in ("k_scale", "v_scale"):
+                    cache[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                             device=dev)
         return cache
 
     @torch.no_grad()
@@ -309,8 +354,7 @@ class Transformer(nn.Module):
         if self.cfg.family == "dense":
             for i, blk in enumerate(self.layers):
                 x, (k, v) = blk(x, cos, sin)
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
+                _store_layer(cache, i, k, v)
             return cache, self._logits(x[:, -1:, :])
         for first, end, app in self._segments():
             for i in range(first, end):
@@ -319,8 +363,7 @@ class Transformer(nn.Module):
                 cache["conv_tail"][i] = st["conv_tail"]
             if app is not None:
                 x, (k, v) = self.shared(x, cos, sin)
-                cache["k"][app, :, :S] = k
-                cache["v"][app, :, :S] = v
+                _store_layer(cache, app, k, v)
         return cache, self._logits(x[:, -1:, :])
 
     @torch.no_grad()
@@ -340,14 +383,14 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         if self.cfg.family != "ssm":
             cos, sin = self._rope(pos[:, None])
+        keys = _kv_keys(cache)
         if self.cfg.family == "dense":
             for i, blk in enumerate(self.layers):
-                x, (k, v) = blk(x, cos, sin, kv_cache=(cache["k"][i],
-                                                       cache["v"][i]),
+                x, (k, v) = blk(x, cos, sin,
+                                kv_cache=tuple(cache[key][i] for key in keys),
                                 cache_pos=pos)
                 # this layer's attention is done: commit its entries now
-                _commit_kv(cache["k"][i], k, pos)
-                _commit_kv(cache["v"][i], v, pos)
+                _commit_layer(cache, i, k, v, pos)
         else:
             for first, end, app in self._segments():
                 for i in range(first, end):
@@ -360,8 +403,7 @@ class Transformer(nn.Module):
                         x, cos, sin, kv_cache=(cache["k"][app],
                                                cache["v"][app]),
                         cache_pos=pos)
-                    _commit_kv(cache["k"][app], k, pos)
-                    _commit_kv(cache["v"][app], v, pos)
+                    _commit_layer(cache, app, k, v, pos)
         if active is None:
             pos.add_(1)
         else:
