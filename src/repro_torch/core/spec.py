@@ -1,31 +1,38 @@
 """Typed, registry-backed experiment specs — the port's config surface.
 
-A copy of ``repro.core.spec`` (the JAX package's module) without its
-discrete-event parts (``DES_POLICIES``, ``SimConfig`` conversion,
-``FaaSBenchConfig`` workloads): the DES simulator is not ported.  The
-four registries name this package's modules as providers, so a lookup
-never imports the JAX package.
+A copy of ``repro.core.spec`` (the JAX package's module).  The four
+registries name this package's modules as providers, so a lookup never
+imports the JAX package.
 
 * ``SchedulerSpec`` / ``DispatchSpec`` / ``PredictorSpec`` — typed
   ``name + args`` specs with a canonical string form
   (``"sfs-aware:overload_factor=3,adaptive_window=100"``, short aliases
   like ``O=3,N=100`` accepted on parse) that round-trips:
   ``parse(str(spec)) == spec``.
-* ``ServerSpec`` — one server's shape: ``cores`` (decode lanes), its
-  scheduler spec, and cache ``slots``.
+* ``ServerSpec`` — one server's shape: ``cores`` (DES cores == tick
+  decode lanes), its scheduler spec, and cache ``slots`` (tick only).
 * ``ExperimentSpec`` — workload + engine + servers + dispatch +
   predictor + lifecycle/chaos knobs, runnable through
   :func:`run_experiment`, which returns one :class:`ExperimentResult`.
-  The engines are the three tick-semantics backends: ``torch`` (the
-  fleet stepping on the device, :mod:`repro_torch.serving.torch_cluster`,
-  the counterpart of the JAX package's ``jax``), ``tick`` (per-object
-  engines, :mod:`repro_torch.serving.cluster`) and ``vector`` (numpy
+  The engines are the discrete-event simulator ``des``
+  (:mod:`repro_torch.core.simulator`, seconds, host Python) and the three
+  tick-semantics backends: ``torch`` (the fleet stepping on the device,
+  :mod:`repro_torch.serving.torch_cluster`, the counterpart of the JAX
+  package's ``jax``), ``tick`` (per-object engines,
+  :mod:`repro_torch.serving.cluster`) and ``vector`` (numpy
   struct-of-arrays groups, :mod:`repro_torch.serving.vector_cluster`);
-  ``tick`` and ``vector`` are host code.
+  ``des``, ``tick`` and ``vector`` are host code.
 
-The JAX package's ``des`` engine is not ported and its ``jax`` engine is
-``torch`` here; naming either raises.  This module imports nothing
-heavier than numpy at module scope; engine construction is lazy.
+Scheduler knob names are canonical and unit-free here (``slice_init``,
+``slice`` …); the per-engine converters map them onto each engine's
+native fields (``slice_init_s`` seconds in the DES, ``slice_init`` ticks
+in the tick engine).  :meth:`ExperimentSpec.to_json` gives the same
+provenance dict as the JAX package's for the same spec, and
+:meth:`ExperimentSpec.from_json` rebuilds a spec from either package's.
+
+The JAX package's ``jax`` engine is ``torch`` here; naming it raises.
+This module imports nothing heavier than numpy at module scope; engine
+construction is lazy.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ import numpy as np
 
 __all__ = [
     "Registry", "SCHEDULER_REGISTRY", "DISPATCH_REGISTRY",
-    "PREDICTOR_REGISTRY", "WORKLOAD_REGISTRY",
+    "PREDICTOR_REGISTRY", "WORKLOAD_REGISTRY", "DES_POLICIES",
     "SchedulerSpec", "DispatchSpec", "PredictorSpec", "LifecycleSpec",
     "ScalingSpec", "FaultSpec", "RetrySpec", "ServerSpec",
     "TickWorkloadSpec", "WorkloadStageSpec", "WorkloadSpec",
@@ -115,9 +122,14 @@ DISPATCH_REGISTRY = Registry("dispatch", "repro_torch.core.dispatch")
 PREDICTOR_REGISTRY = Registry("predictor", "repro_torch.core.predict")
 WORKLOAD_REGISTRY = Registry("workload", "repro_torch.core.workload")
 
-# the JAX package's engines that this package does not run
-NOT_PORTED = ("des", "jax")
-ENGINES = ("torch", "tick", "vector")
+# DES per-server policies are simulator modes, not factory classes, so
+# they are validated against this fixed set instead of a registry.
+DES_POLICIES = ("sfs", "cfs", "fifo", "rr", "srtf", "ideal")
+
+# the JAX package's engine that this package does not run (its
+# counterpart here is "torch")
+NOT_PORTED = ("jax",)
+ENGINES = ("torch", "des", "tick", "vector")
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +234,21 @@ class _SpecBase:
         return dataclasses.replace(self, args=tuple(merged.items()))
 
 
+# canonical scheduler knob -> DES SimConfig field (seconds)
+DES_SCHED_FIELDS = {
+    "slice": "slice_s",
+    "slice_init": "slice_init_s",
+    "adaptive_window": "adaptive_window",
+    "overload_factor": "overload_factor",
+    "io_aware": "io_aware",
+    "poll_interval": "poll_interval_s",
+    "hinted_demotion": "hinted_demotion",
+    "rr_quantum": "rr_quantum_s",
+    "cfs_latency": "cfs_latency_s",
+    "cfs_min_gran": "cfs_min_gran_s",
+    "ctx_switch_cost": "ctx_switch_cost_s",
+}
+
 # canonical scheduler knob -> tick-engine make_scheduler kwarg (ticks)
 TICK_SCHED_FIELDS = {
     "slice": "slice_ticks",
@@ -238,9 +265,9 @@ class SchedulerSpec(_SpecBase):
     """Per-server scheduling policy + knobs, engine-agnostic.
 
     Knob names are canonical (``slice``, ``slice_init``,
-    ``adaptive_window``, ``overload_factor``, …);
-    :meth:`ServerSpec.to_engine_config` maps them onto the tick engine's
-    native field names through ``TICK_SCHED_FIELDS``.
+    ``adaptive_window``, ``overload_factor``, …); the engine converters
+    (:meth:`ServerSpec.to_sim_config` / :meth:`ServerSpec.to_engine_config`)
+    map them to the engine's native field names and units.
     """
 
     name: str = "sfs"
@@ -598,11 +625,12 @@ class RetrySpec(_SpecBase):
 
 @dataclasses.dataclass(frozen=True)
 class ServerSpec:
-    """One server's shape: parallelism + scheduler (+ cache shape).
+    """One server's shape: parallelism + scheduler (+ tick cache shape).
 
-    ``cores`` is the server's decode lanes; ``slots`` (resident cache
-    slots, default ``16 * cores``) and ``max_len`` (per-slot cache
-    capacity) shape its cache.
+    ``cores`` is the server's parallelism in every engine (DES cores ==
+    tick decode lanes).  ``slots`` (resident cache slots, default
+    ``16 * cores``) and ``max_len`` (per-slot cache capacity) are
+    tick-engine notions; the DES ignores them.
 
     The spec has a terse one-line string form
     (``"cores=6;scheduler=sfs:O=3;slots=96"``, non-default fields only)
@@ -655,7 +683,24 @@ class ServerSpec:
                                  "cores/scheduler/slots/max_len")
         return cls(**kw)
 
-    # -- converters (spec <-> EngineConfig) ------------------------------
+    # -- converters (spec <-> SimConfig / EngineConfig) ------------------
+    def to_sim_config(self):
+        """DES :class:`~repro_torch.core.simulator.SimConfig` for this
+        server."""
+        from repro_torch.core.simulator import SimConfig
+        if self.scheduler.name not in DES_POLICIES:
+            raise ValueError(
+                f"scheduler {self.scheduler.name!r} is not a DES policy; "
+                f"expected one of {DES_POLICIES}")
+        kw = {}
+        for k, v in self.scheduler.args:
+            if k not in DES_SCHED_FIELDS:
+                raise ValueError(f"unknown scheduler knob {k!r} for the "
+                                 f"DES engine; expected one of "
+                                 f"{tuple(DES_SCHED_FIELDS)}")
+            kw[DES_SCHED_FIELDS[k]] = v
+        return SimConfig(cores=self.cores, policy=self.scheduler.name, **kw)
+
     def to_engine_config(self):
         """This package's :class:`~repro_torch.serving.engine.EngineConfig`
         for this server (lazy import)."""
@@ -675,6 +720,18 @@ class ServerSpec:
                                      else 16 * self.cores),
                             policy=self.scheduler.name, sched_kw=kw,
                             **extra)
+
+    @classmethod
+    def from_sim_config(cls, cfg) -> "ServerSpec":
+        """Lossless converse of :meth:`to_sim_config` (non-default
+        fields only, so specs stay terse)."""
+        from repro_torch.core.simulator import SimConfig
+        base = SimConfig()
+        args = tuple((canon, getattr(cfg, field))
+                     for canon, field in DES_SCHED_FIELDS.items()
+                     if getattr(cfg, field) != getattr(base, field))
+        return cls(cores=cfg.cores,
+                   scheduler=SchedulerSpec(cfg.policy, args))
 
     @classmethod
     def from_engine_config(cls, ecfg) -> "ServerSpec":
@@ -798,14 +855,21 @@ class ExperimentSpec:
     dispatch + predictor.
 
     ``servers`` is a per-server list — mixed cores/lanes/slots/policies
-    form one group per shape.  ``workload`` is a :class:`TickWorkloadSpec`
-    or staged :class:`WorkloadSpec` (a ``"gen|stage|..."`` pipe string
-    parses to the latter), or None when requests are passed to
-    :func:`run_experiment` directly.  ``lifecycle`` / ``scaling`` opt the
-    fleet into cold starts, failure/drain and autoscaling; ``faults`` /
-    ``retry`` into correlated failure episodes with recovery and request
+    form one group per shape.  ``workload`` is a
+    :class:`~repro_torch.core.workload.FaaSBenchConfig` (DES), a
+    :class:`TickWorkloadSpec` or staged :class:`WorkloadSpec` (tick
+    family; a ``"gen|stage|..."`` pipe string parses to the latter), or
+    None when requests are passed to :func:`run_experiment` directly.
+    ``dispatch_latency`` is the DES router->server delay in seconds (the
+    tick family has no latency model; it must stay 0 there).
+    ``lifecycle`` / ``scaling`` opt the fleet into cold starts,
+    failure/drain and autoscaling; ``faults`` / ``retry`` into correlated
+    failure episodes with recovery and request
     timeouts/retries/hedging/shedding (:mod:`repro_torch.core.chaos`).
 
+    ``engine="des"`` runs the discrete-event simulator
+    (:class:`~repro_torch.core.simulator.ClusterSimulator`), bit-exact
+    with the JAX package's ``engine="des"``.
     ``engine="torch"`` (the default) runs tick semantics through
     :class:`~repro_torch.serving.torch_cluster.TorchCluster`, the
     counterpart of the JAX package's ``engine="jax"``, bit for bit.
@@ -826,6 +890,7 @@ class ExperimentSpec:
     dispatch: DispatchSpec = DispatchSpec("hash")
     predictor: object = PredictorSpec("oracle")
     workload: object = None
+    dispatch_latency: float = 0.0
     lifecycle: object = None                 # None | LifecycleSpec | str
     scaling: object = None                   # None | ScalingSpec | str
     faults: object = None                    # None | FaultSpec | str
@@ -838,7 +903,7 @@ class ExperimentSpec:
                              "backend, equal to the JAX package's 'jax')")
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; "
-                             "expected 'torch', 'tick' or 'vector'")
+                             "expected 'torch', 'des', 'tick' or 'vector'")
         servers = tuple(ServerSpec.parse(s) if isinstance(s, str) else s
                         for s in self.servers)
         if not servers:
@@ -900,12 +965,93 @@ class ExperimentSpec:
             mx = self.scaling.max_servers
             if mx is not None and mx < self.scaling.min_servers:
                 raise ValueError("scaling max must be >= min")
+        if self.engine != "des" and self.dispatch_latency:
+            raise ValueError("dispatch_latency is DES-only (the tick "
+                             "engine has no network-delay model)")
 
     @property
     def total_cores(self) -> int:
         return sum(s.cores for s in self.servers)
 
-    # -- converter ------------------------------------------------------
+    # -- provenance (JSON round-trip) -----------------------------------
+    def to_json(self) -> dict:
+        """JSON-safe provenance dict stamped into benchmark artifacts;
+        :meth:`from_json` rebuilds an equal spec (asserted in tests).
+        Servers/dispatch/predictor travel through their canonical string
+        grammar; a non-spec predictor instance degrades to its name
+        (best-effort provenance, not rebuildable)."""
+        pred = (str(self.predictor)
+                if isinstance(self.predictor, PredictorSpec)
+                else getattr(self.predictor, "name", repr(self.predictor)))
+        d = {"engine": self.engine,
+             "servers": [str(s) for s in self.servers],
+             "dispatch": str(self.dispatch),
+             "predictor": pred,
+             "dispatch_latency": self.dispatch_latency,
+             "lifecycle": (None if self.lifecycle is None
+                           else str(self.lifecycle)),
+             "scaling": (None if self.scaling is None
+                         else str(self.scaling)),
+             "faults": (None if self.faults is None
+                        else str(self.faults)),
+             "retry": (None if self.retry is None
+                       else str(self.retry)),
+             "workload": None}
+        wl = self.workload
+        if isinstance(wl, WorkloadSpec):
+            d["workload"] = {"kind": "staged", "spec": str(wl)}
+        elif isinstance(wl, TickWorkloadSpec):
+            d["workload"] = {"kind": "tick", **dataclasses.asdict(wl)}
+        elif wl is not None:
+            from repro_torch.core.workload import FaaSBenchConfig
+            if isinstance(wl, FaaSBenchConfig):
+                d["workload"] = {"kind": "faas", **dataclasses.asdict(wl)}
+            else:
+                d["workload"] = {"kind": "opaque", "repr": repr(wl)}
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ExperimentSpec":
+        """Rebuild a spec from :meth:`to_json` output (tuple-typed
+        workload fields come back as JSON lists and are re-tupled)."""
+        wl = d.get("workload")
+        workload = None
+        if wl is not None:
+            kind = wl.get("kind")
+            body = {k: v for k, v in wl.items() if k != "kind"}
+            if kind == "staged":
+                workload = WorkloadSpec.parse(body["spec"])
+            elif kind == "tick":
+                for k in ("short_range", "long_range"):
+                    body[k] = tuple(body[k])
+                workload = TickWorkloadSpec(**body)
+            elif kind == "faas":
+                from repro_torch.core.workload import FaaSBenchConfig
+                body["duration_table"] = tuple(
+                    tuple(row) for row in body["duration_table"])
+                body["io_ms_range"] = tuple(body["io_ms_range"])
+                workload = FaaSBenchConfig(**body)
+            else:
+                raise ValueError(
+                    f"cannot rebuild workload of kind {kind!r}")
+        return cls(engine=d["engine"], servers=tuple(d["servers"]),
+                   dispatch=d["dispatch"], predictor=d["predictor"],
+                   workload=workload,
+                   dispatch_latency=d.get("dispatch_latency", 0.0),
+                   lifecycle=d.get("lifecycle"), scaling=d.get("scaling"),
+                   faults=d.get("faults"), retry=d.get("retry"))
+
+    # -- converters -----------------------------------------------------
+    def to_cluster_sim_config(self):
+        from repro_torch.core.simulator import ClusterSimConfig
+        return ClusterSimConfig(
+            n_servers=len(self.servers),
+            servers=[s.to_sim_config() for s in self.servers],
+            dispatch=self.dispatch, predictor=self.predictor,
+            dispatch_latency_s=self.dispatch_latency,
+            lifecycle=self.lifecycle, scaling=self.scaling,
+            faults=self.faults, retry=self.retry)
+
     def to_cluster_config(self):
         from repro_torch.serving.cluster import ClusterConfig
         return ClusterConfig(policy=self.dispatch,
@@ -925,9 +1071,10 @@ class ExperimentSpec:
 class ExperimentResult:
     """One result schema for every benchmark, whichever engine ran.
 
-    Per-request arrays are rid-ordered; ``unit`` is ``"t"`` (ticks).
-    ``raw`` keeps the finished serving requests for anything
-    schema-shaped access can't answer.
+    Per-request arrays are rid-ordered; ``unit`` is ``"s"`` (DES) or
+    ``"t"`` (ticks).  ``raw`` keeps the engine-native result
+    (:class:`~repro_torch.core.simulator.ClusterSimResult` or the finished
+    serving requests) for anything schema-shaped access can't answer.
     """
 
     spec: ExperimentSpec
@@ -997,11 +1144,13 @@ def run_experiment(spec: ExperimentSpec, requests=None, *,
     """Run one :class:`ExperimentSpec` end to end on ``device``.
 
     ``requests`` overrides the spec's declarative workload with an
-    explicit serving-request list.  Deterministic given the
-    spec/workload, on either device.  ``device`` is the CUDA card unless
-    the caller asks for ``"cpu"``; without a card the default raises.
-    The ``tick`` and ``vector`` backends step on the host; their engines
-    are built on ``device`` all the same.
+    explicit request list (core requests for ``des``, serving requests
+    for the tick family).  Deterministic given the spec/workload, on
+    either device.  ``device`` is the CUDA card unless the caller asks
+    for ``"cpu"``; without a card the default raises.  The ``des``,
+    ``tick`` and ``vector`` backends step on the host; ``des`` places
+    nothing on ``device`` but resolves it all the same, and the tick
+    backends build their engines there.
 
     ``telemetry`` opts into the observability layer
     (:mod:`repro_torch.core.telemetry`): a ``Telemetry`` /
@@ -1016,6 +1165,10 @@ def run_experiment(spec: ExperimentSpec, requests=None, *,
         from repro_torch.core.telemetry import Telemetry
         tel = Telemetry.ensure(telemetry)
     t0 = time.perf_counter()
+    if spec.engine == "des":
+        from repro_torch.device import resolve_device
+        resolve_device(device)
+        return _run_des(spec, requests, t0, tel)
     return _run_tick(spec, requests, t0, max_ticks, tel, device)
 
 
@@ -1046,6 +1199,38 @@ def _build_tick_cluster(spec: ExperimentSpec, device):
     engines = [Engine(s.to_engine_config(), device=device)
                for s in spec.servers]
     return Cluster(engines, spec.to_cluster_config())
+
+
+def _run_des(spec: ExperimentSpec, requests, t0: float,
+             tel=None) -> ExperimentResult:
+    from repro_torch.core.simulator import ClusterSimulator
+    from repro_torch.core.workload import FaaSBenchConfig, generate
+    if requests is None:
+        if not isinstance(spec.workload, FaaSBenchConfig):
+            raise ValueError(
+                "DES experiment needs a FaaSBenchConfig workload (or an "
+                f"explicit request list); got {spec.workload!r}")
+        requests = generate(spec.workload)
+    sim = ClusterSimulator(requests, spec.to_cluster_sim_config())
+    if tel is not None:
+        sim.attach_telemetry(tel)
+    res = sim.run()
+    st = res.merged.stats
+    return ExperimentResult(
+        spec=spec, engine="des", unit="s",
+        rids=np.array([s.rid for s in st]),
+        service=np.array([s.service for s in st]),
+        turnaround=np.array([s.turnaround for s in st]),
+        rte=np.array([s.rte for s in st]),
+        finish=np.array([s.finish for s in st]),
+        n_ctx=np.array([s.n_ctx for s in st]),
+        demoted=np.array([s.demoted for s in st]),
+        policy=res.policy, predictor=res.predictor,
+        dispatch_counts=list(res.dispatch_counts),
+        overload_bypasses=res.overload_bypasses,
+        eta_log=dict(res.eta_log), dispatch_S=res.dispatch_S,
+        wall_s=time.perf_counter() - t0, raw=res, telemetry=tel,
+        **_chaos_counts(sim))
 
 
 def _run_tick(spec: ExperimentSpec, requests, t0: float,

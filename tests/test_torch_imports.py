@@ -65,10 +65,12 @@ def test_registry_providers_are_the_port():
 
 
 def test_engines_of_the_reference_are_not_ported():
+    """The JAX package's ``jax`` engine is ``torch`` here and raises; its
+    ``des`` engine is ported; the default stays ``torch``."""
     from repro_torch import ExperimentSpec
-    for engine in ("des", "jax"):
-        with pytest.raises(ValueError, match="not ported"):
-            ExperimentSpec(engine=engine)
+    with pytest.raises(ValueError, match="not ported"):
+        ExperimentSpec(engine="jax")
+    assert ExperimentSpec(engine="des").engine == "des"
     assert ExperimentSpec().engine == "torch"
 
 
@@ -100,6 +102,31 @@ def test_importing_the_port_loads_no_jax():
             "for p in ('sfs', 'cfs', 'fifo', 'srtf'):\n"
             "    make_scheduler(p, 4)\n"
             "Engine(EngineConfig(), device='cpu')\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_des_loads_no_jax():
+    code = ("import sys\n"
+            "import repro_torch.core\n"
+            "from repro_torch import ExperimentSpec, run_experiment\n"
+            "from repro_torch.core import (FaaSBenchConfig, SimConfig,\n"
+            "    generate, metrics, policies, simulate)\n"
+            "reqs = generate(FaaSBenchConfig(n_requests=40, cores=4))\n"
+            "for p in policies.ALL_POLICIES:\n"
+            "    metrics.result_bucket_stats(simulate(reqs,\n"
+            "                                         policies.make(p, 4)))\n"
+            "run_experiment(ExperimentSpec(engine='des',\n"
+            "    servers=('cores=2',) * 2, dispatch='sfs-aware',\n"
+            "    predictor='history',\n"
+            "    workload=FaaSBenchConfig(n_requests=40, cores=4)),\n"
+            "    device='cpu')\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
