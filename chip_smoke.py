@@ -11,7 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sm_90a, all at once (ptxas report printed);
 3. each attention kernel against its plain PyTorch version on the card,
    in float32 (atol = rtol = 2e-5) and bfloat16 (2e-2), at qwen2.5-3b's,
-   zamba2-1.2b's, chatglm3-6b's and gemma-7b's shapes among others
+   zamba2-1.2b's, chatglm3-6b's, gemma-7b's, qwen3-moe-30b-a3b's (8
+   query heads per kv head), dbrx-132b's (6, int8 cache), llava-next-34b's
+   (7, int8 cache; flash also at its 600-token prompts) and
+   hubert-xlarge's (not causal, D = 80, 512 frames) shapes among others
    (flash: every head dim of the bfloat16 tensor-core kernel and of the
    float32 one up to 256, causal and not, ragged tiles; decode: head dims
    16 to 256, 1 to 16 query heads per kv head, kv_len 0 in some rows, with
@@ -35,16 +38,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1e-3 * max|logits|; then mamba2-1.3b and zamba2-1.2b the same way with
    300-token prompts (two SSD chunks, the second ragged) and one slot
    inactive in the decode steps; then chatglm3-6b and gemma-7b (its int8
-   KV cache kept) with 8-token prompts; the kernel path must launch flash
+   KV cache kept) with 8-token prompts; then qwen3-moe-30b-a3b cut to 8
+   layers, dbrx-132b cut to 2 (int8 cache), llava-next-34b cut to 8
+   (int8 cache; 600-token prompts whose first 576 positions are
+   synthetic vision embeddings) and hubert-xlarge whole (the forward
+   over 512 frames, not causal); the kernel path must launch flash
    once per attention layer and the decode variant its cache calls for
-   once per layer and step;
+   once per layer and step; for the MoE models every MoE call's routes
+   (each token's top-k set and keep mask) must be the same on both paths,
+   except at a router margin below 1e-5 (reported, and that sequence
+   left out of the logits check), the drop shares are printed, and no
+   decode step may drop an assignment;
 5. the main path: ``repro_torch.launch.serve.main`` at full width in
    bfloat16 (48 requests, 4 lanes, 32 slots, max-len 192) on qwen2.5-3b
    under ``sfs`` and ``cfs``, then on mamba2-1.3b, zamba2-1.2b,
-   chatglm3-6b and gemma-7b (int8 KV cache) under ``sfs``: every request
-   completes, no logit is NaN or infinite, no call reaches a plain
-   attention version, chatglm3-6b and gemma-7b decode only through the
-   kernel variant their cache calls for (``mma``, ``mma_int8``), every
+   chatglm3-6b, gemma-7b (int8 KV cache), qwen3-moe-30b-a3b and
+   llava-next-34b (int8 KV cache; tokens only) under ``sfs``: every
+   request completes, no logit is NaN or infinite, no call reaches a
+   plain attention version, chatglm3-6b, gemma-7b, qwen3-moe-30b-a3b
+   and llava-next-34b decode only through the kernel variant their cache
+   calls for (``mma``, ``mma_int8``), every
    prefill launched ssd_scan once per Mamba layer and flash-attention once
    per attention layer or shared-block application, every decode step
    launched decode-attention as often, and the schedule (mean, median and
@@ -57,12 +70,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --replicas 2`` run's, and every replica given requests; wall s, ms per
    cluster tick and decode tok/s printed beside the card;
 6. where the time goes: one more serving run of qwen2.5-3b (16
-   requests) and one each of mamba2-1.3b, zamba2-1.2b and gemma-7b (8
-   requests)
+   requests) and one each of mamba2-1.3b, zamba2-1.2b, gemma-7b,
+   qwen3-moe-30b-a3b and llava-next-34b (8 requests)
    under torch.profiler (device activity only), with the card's busy
    share, device operations per tick, the port's kernels' shares and the
    kernels by device time (reported; a Mamba model fails if no ssd_scan
-   device time is traced or not one kernel per launch);
+   device time is traced or not one kernel per launch); for
+   qwen3-moe-30b-a3b and llava-next-34b also four decode steps of all 32
+   slots traced with the host's operators: device ms a step against the
+   step's bytes bound, the MoE experts' share, and a failure if any
+   operator copies a weight tensor of 64 MB or more;
 7. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 100,
    256, 1024, 4096} (both variants, every register width) and kmax in
@@ -147,6 +164,18 @@ SSM_ARCHS = ("mamba2-1.3b", "zamba2-1.2b")
 # per kv head) and gemma-7b (head_dim 256, one query head per kv head,
 # the int8 KV cache of its full config)
 DENSE_ARCHS = ("chatglm3-6b", "gemma-7b")
+# the moe and vlm families at full width and depth: qwen3-moe-30b-a3b
+# (128 experts, top-8; 8 query heads per kv head) and llava-next-34b (7
+# query heads per kv head, the int8 KV cache of its full config)
+FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "llava-next-34b")
+# full width, kernel path vs plain path in float32: (arch, prompt length,
+# max len, depth; 0 = the config's): qwen3-moe and llava with their depth
+# cut to fit float32 on one card, dbrx-132b (which does not fit one card
+# at full depth in any dtype) at two layers with its int8 cache, llava
+# with 600-token prompts behind its 576-position vision prefix, and
+# hubert-xlarge whole, over 512 frames
+FAMILY_CHECKS = (("qwen3-moe-30b-a3b", 8, 192, 8), ("dbrx-132b", 8, 192, 2),
+                 ("llava-next-34b", 600, 640, 8), ("hubert-xlarge", 512, 0, 0))
 # multi-replica serving: two engines over one model behind the router
 REPLICA_ARCHS = ("qwen2.5-3b", "zamba2-1.2b")
 SERVE_ARGS = ["--full", "--device", "cuda", "--requests", "48", "--lanes",
@@ -338,7 +367,17 @@ def check_flash(gen) -> dict:
              ("d256long", 1, 1024, 16, 16, 256, True, "bfloat16", True),
              # chatglm3-6b's prefill: 16 query heads per kv head
              ("chatglm3", 1, 8, 32, 2, 128, True, "bfloat16", False),
-             ("chatglm3", 1, 8, 32, 2, 128, True, "float32", False)]
+             ("chatglm3", 1, 8, 32, 2, 128, True, "float32", False),
+             # qwen3-moe-30b-a3b's and llava-next-34b's serving prefills
+             # (8 query heads per kv head; 7), llava's 600-token prompts
+             # and hubert-xlarge's 512 frames (not causal, D = 80)
+             ("qwen3moe", 1, 8, 32, 4, 128, True, "bfloat16", True),
+             ("qwen3moe", 1, 8, 32, 4, 128, True, "float32", False),
+             ("llava", 1, 8, 56, 8, 128, True, "bfloat16", True),
+             ("llava", 1, 8, 56, 8, 128, True, "float32", False),
+             ("llava600", 1, 600, 56, 8, 128, True, "float32", False),
+             ("hubert", 2, 512, 16, 16, 80, False, "bfloat16", True),
+             ("hubert", 2, 512, 16, 16, 80, False, "float32", False)]
     main = None
     for label, B, S, H, K, D, causal, dtype, timed in cases:
         dt = getattr(torch, dtype)
@@ -414,6 +453,11 @@ def check_decode(gen) -> dict:
              ("chatglm3", 32, 192, 32, 2, 128, True, False),
              ("gemma", 32, 192, 16, 16, 256, True, False),
              ("gemma", 32, 192, 16, 16, 256, True, True),
+             # qwen3-moe-30b-a3b (G = 8), dbrx-132b (G = 6) and
+             # llava-next-34b (G = 7), the last two over int8 caches
+             ("qwen3moe", 32, 192, 32, 4, 128, True, False),
+             ("dbrx", 32, 192, 48, 8, 128, True, True),
+             ("llava", 32, 192, 56, 8, 128, True, True),
              ("long", 6, 4096, 16, 2, 128, True, False),
              ("d256", 8, 130, 8, 4, 256, False, False),
              ("g16", 8, 130, 32, 2, 128, False, True),
@@ -643,46 +687,139 @@ def check_ssd(gen) -> dict:
     return main
 
 
-def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
-    """Kernel path vs plain path, full width, float32: a prefill of 4
-    prompts and 3 decode steps with the last slot inactive; the kernel
-    path launches flash once per attention layer (or shared-block
-    application) of the prefill and decode once per such layer of each
-    step (an int8 cache: the FMA kernel's int8 variant, float32 q)."""
+def attn_layers(cfg) -> int:
+    """Attention layers a prefill or decode step runs (flash or decode
+    launches per call)."""
+    from repro_torch.models.transformer import n_shared_apps
+    return {"ssm": 0, "hybrid": n_shared_apps(cfg)}.get(cfg.family,
+                                                        cfg.n_layers)
+
+
+def free_card() -> None:
+    """Drop what the last phase left, before a model of tens of GB."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class MoEInputs:
+    """Every MoE layer's input, call by call (forward pre-hooks), to
+    recompute its routes with ``repro_torch.models.moe.route``."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.hooks = [blk.moe.register_forward_pre_hook(
+            lambda mod, args, i=i: self.calls.append((i, args[0].clone())))
+            for i, blk in enumerate(model.layers)]
+
+    def routes(self, model) -> list:
+        from repro_torch.models.moe import route
+        return [route(model.layers[i].moe.w_router, x, model.cfg.moe)
+                for i, x in self.calls]
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def route_flips(arch: str, kern: list, plain: list, tie: float = 1e-5
+                ) -> set:
+    """Hold the kernel path's routes (each token's top-k set and keep
+    mask) to the plain path's, call by call.  A difference at a router
+    margin (k-th minus (k+1)-th probability) below ``tie`` is a near tie
+    that the two paths' float32 rounding may break either way: it is
+    reported with its position and its sequence is returned, to be left
+    out of the comparison of logits.  Any other difference fails."""
+    import torch
+    rows = set()
+    for call, (a, b) in enumerate(zip(kern, plain)):
+        ia, oa = a.gate_idx.sort(-1)
+        ib, ob = b.gate_idx.sort(-1)
+        ka, kb = a.keep.gather(-1, oa), b.keep.gather(-1, ob)
+        diff = ((ia != ib) | (ka != kb)).any(-1)
+        margin = torch.minimum(a.margin, b.margin)
+        for bi, si in diff.nonzero().tolist():
+            m = margin[bi, si].item()
+            where = f"{arch} MoE call {call} token (b={bi}, s={si})"
+            if m >= tie:
+                fail(f"{where}: routes differ at router margin {m:.3g}: "
+                     f"kernel {ia[bi, si].tolist()} keep "
+                     f"{ka[bi, si].tolist()}, plain {ib[bi, si].tolist()} "
+                     f"keep {kb[bi, si].tolist()}")
+            print(f"[model] {where}: near-tie route flip at margin "
+                  f"{m:.3g}; sequence {bi} left out of the logits check")
+            rows.add(bi)
+    return rows
+
+
+def check_full_model(arch: str, prompt_len: int, max_len: int,
+                     depth: int = 0) -> None:
+    """Kernel path vs plain path, full width (depth cut to ``depth``
+    layers if given), float32: a prefill of 4 prompts and 3 decode steps
+    with the last slot inactive; the kernel path launches flash once per
+    attention layer (or shared-block application) of the prefill and
+    decode once per such layer of each step (an int8 cache: the FMA
+    kernel's int8 variant, float32 q).  vlm: the prompts' first n_prefix
+    positions are ``synth_vision_embeds``.  audio (no cache): the forward
+    over 2 x ``prompt_len`` frames, flash once per layer.  moe: the
+    routes of both paths are held equal (``route_flips``), and the
+    prefill's and steps' drop shares printed."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
-    from repro_torch.models.transformer import Transformer, n_shared_apps
+    from repro_torch.models import frontends
+    from repro_torch.models.transformer import Transformer
+    free_card()
     cfg = configs.get(arch).replace(dtype="float32", attn_impl="kernel")
+    if depth:
+        cfg = cfg.replace(n_layers=depth)
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator("cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (4, prompt_len), generator=gen,
-                            device="cuda")
-    steps = torch.randint(0, cfg.vocab, (3, 4), generator=gen,
-                          device="cuda")
+    audio = cfg.family == "audio"
+    moe = cfg.family == "moe"
+    if audio:
+        prompts = frontends.synth_audio_frames(cfg, gen, 2, prompt_len)
+        steps = ()
+    else:
+        prompts = torch.randint(0, cfg.vocab, (4, prompt_len), generator=gen,
+                                device="cuda")
+        steps = torch.randint(0, cfg.vocab, (3, 4), generator=gen,
+                              device="cuda")
+    vision = (frontends.synth_vision_embeds(cfg, gen, 4)
+              if cfg.family == "vlm" else None)
     active = torch.tensor([True, True, True, False], device="cuda")
     n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    n_attn = {"dense": cfg.n_layers, "hybrid": n_shared_apps(cfg)}.get(
-        cfg.family, 0)
+    n_attn = attn_layers(cfg)
     variant = decode_variant("float32", cfg.head_dim, cfg.int8_cache)
-    runs = {}
+    runs, routes = {}, {}
+    cache = {}
     for impl in ("kernel", "dense"):
         model.set_attn_impl(impl)
         sk.launches = fk.launches = 0
         dk.variant_launches.update(dict.fromkeys(dk.VARIANTS, 0))
-        cache, logits = model.prefill(prompts, max_len)
-        if sk.launches != (n_mamba if impl == "kernel" else 0):
-            fail(f"{arch} {impl} prefill: {sk.launches} ssd_scan launches "
-                 f"for {n_mamba} Mamba layers")
-        out = [logits[:, 0]]
-        for tok in steps:
-            cache, logits = model.decode_step(cache, tok, active=active)
-            out.append(logits[:, 0])
+        inputs = MoEInputs(model) if moe else None
+        if audio:
+            out = [model(prompts)]
+        else:
+            cache, logits = model.prefill(prompts, max_len,
+                                          vision_embeds=vision)
+            if sk.launches != (n_mamba if impl == "kernel" else 0):
+                fail(f"{arch} {impl} prefill: {sk.launches} ssd_scan "
+                     f"launches for {n_mamba} Mamba layers")
+            out = [logits[:, 0]]
+            for tok in steps:
+                cache, logits = model.decode_step(cache, tok, active=active)
+                out.append(logits[:, 0])
+        if moe:
+            routes[impl] = inputs.routes(model)
+            inputs.remove()
+        # [calls, sequences, ...]
         runs[impl] = torch.stack(out).float()
         on = impl == "kernel"
         want = {v: (len(steps) * n_attn if on and v == variant else 0)
@@ -696,24 +833,50 @@ def check_full_model(arch: str, prompt_len: int, max_len: int) -> None:
         fail(f"{arch}: the cache is {cache['k'].dtype}, not int8")
     torch.cuda.synchronize()
     a, b = runs["kernel"], runs["dense"]
-    if not torch.isfinite(a).all() or a.shape != (4, 4, cfg.vocab_padded):
+    shape = ((1, 2, prompt_len) if audio else (4, 4)) + (cfg.vocab_padded,)
+    if not torch.isfinite(a).all() or tuple(a.shape) != shape:
         fail(f"{arch}: full-width logits non-finite or of shape "
              f"{tuple(a.shape)}")
+    flipped = set()
+    if moe:
+        flipped = route_flips(arch, routes["kernel"], routes["dense"])
+        n_layers = cfg.n_layers
+        r_pre = routes["kernel"][:n_layers]
+        r_dec = routes["kernel"][n_layers:]
+        drop_pre = [1 - r.keep.float().mean().item() for r in r_pre]
+        drop_dec = [1 - r.keep.float().mean().item() for r in r_dec]
+        experts = [len(set(r.gate_idx[bi][r.keep[bi]].tolist()))
+                   for r in r_pre for bi in range(4)]
+        print(f"[model] {arch} MoE: capacity {r_pre[0].capacity} at the "
+              f"{prompt_len}-token prefill, moe_drop_frac per layer "
+              f"{min(drop_pre):.4f}-{max(drop_pre):.4f} (mean "
+              f"{sum(drop_pre) / len(drop_pre):.4f}), experts used per "
+              f"sequence and layer {min(experts)}-{max(experts)} (mean "
+              f"{sum(experts) / len(experts):.2f}) of "
+              f"{cfg.moe.n_experts}; decode capacity "
+              f"{r_dec[0].capacity}, moe_drop_frac {max(drop_dec):.4f}")
+        if max(drop_dec) != 0:
+            fail(f"{arch}: a decode step dropped an assignment")
+    keep = [i for i in range(a.shape[1]) if i not in flipped]
+    a, b = a[:, keep], b[:, keep]
     scale = b.abs().max().item()
     err = (a - b).abs().max().item()
     top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    print(f"[model] {arch} full width float32, {n_params / 1e9:.3f} B "
-          f"params, {cache['k'].dtype if 'k' in cache else 'no'} KV cache "
-          f"(decode {variant} x{len(steps) * n_attn}), "
-          f"{prompt_len}-token prompts: kernel vs plain "
-          f"max|dlogits|={err:.3g} (limit {1e-3 * scale:.3g} = "
-          f"1e-3*max|logits|), top-1 agreement {top1:.3f} over "
-          f"{a.shape[0] * a.shape[1]} positions, "
+    kv = cache["k"].dtype if "k" in cache else "no"
+    print(f"[model] {arch} full width float32, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, {kv} KV cache "
+          f"(flash x{n_attn}, decode {variant} x{len(steps) * n_attn}), "
+          f"{prompt_len}-token {'frames' if audio else 'prompts'}"
+          f"{' with vision prefix' if vision is not None else ''}: "
+          f"kernel vs plain max|dlogits|={err:.3g} (limit "
+          f"{1e-3 * scale:.3g} = 1e-3*max|logits|) over {len(keep)} "
+          f"sequences, top-1 agreement {top1:.3f} over "
+          f"{a[..., 0].numel()} positions, "
           f"{time.perf_counter() - t0:.1f} s")
     if err > 1e-3 * scale:
         fail(f"{arch}: full-width kernel path disagrees with the plain path")
-    del model, runs, a, b, cache
-    torch.cuda.empty_cache()
+    del model, runs, routes, a, b, cache
+    free_card()
 
 
 SCHEDULE_KEYS = ("mean_turnaround", "median_turnaround", "p99_turnaround",
@@ -759,13 +922,13 @@ def run_main_path(arch: str, policies, replicas: int = 1,
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import Transformer, n_shared_apps
+    from repro_torch.models.transformer import Transformer
+    free_card()
     cfg = configs.get(arch)
     variant = decode_variant(cfg.dtype, cfg.head_dim, cfg.int8_cache)
     # kernel launches per prefill (ssd_scan, flash) and per decode step
     n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    n_attn = {"dense": cfg.n_layers, "hybrid": n_shared_apps(cfg)}.get(
-        cfg.family, 0)
+    n_attn = attn_layers(cfg)
     per = {"flash_attention": n_attn, "decode_attention": n_attn,
            "ssd_scan": n_mamba}
     finite = []
@@ -828,7 +991,7 @@ def run_main_path(arch: str, policies, replicas: int = 1,
                 fail(f"{arch} {policy}: a kernel of the path never ran")
             if plain:
                 fail(f"{arch} {policy}: plain attention ran: {plain}")
-            if arch in DENSE_ARCHS and variants != {
+            if arch in DENSE_ARCHS + FAMILY_ARCHS and variants != {
                     variant: n["decode_attention"]}:
                 fail(f"{arch} {policy}: decode variants {variants}, "
                      f"expected only {variant}")
@@ -848,6 +1011,16 @@ def run_main_path(arch: str, policies, replicas: int = 1,
     return totals
 
 
+def traced_kernels(prof) -> list:
+    """(name, µs) of every device operation a profile traced, read from
+    the raw trace: building torch.profiler's Python event tree takes
+    minutes at half a million operations."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def profile_main_path(arch: str, n_requests: int) -> None:
     """Where the time goes: one profiled serving run (sfs, after the main
     path has warmed the card), with the device's busy share, device
@@ -857,15 +1030,16 @@ def profile_main_path(arch: str, n_requests: int) -> None:
     several times as long to collect the events.  Profiling still slows
     the host, so the busy share is a lower bound.  Reports; fails only
     for a model with Mamba layers whose profile shows no ssd_scan device
-    time, or not one traced ssd_scan kernel per launch."""
+    time, or not one traced ssd_scan kernel per launch (and in
+    ``profile_decode_steps``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import Engine, EngineConfig
+    free_card()
     cfg = configs.get(arch)
     has_ssd = cfg.family in ("ssm", "hybrid")
     model = Transformer(cfg, device="cuda",
@@ -883,8 +1057,8 @@ def profile_main_path(arch: str, n_requests: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ssd_launches = sk.launches
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels) / 1e6
+    kernels = traced_kernels(prof)
+    busy = sum(us for _, us in kernels) / 1e6
     ticks = engine.t
     print(f"[profile] {arch} sfs {n_requests} requests: {ticks} ticks, "
           f"{engine.n_prefills} prefills, {engine.n_decode_steps} decode "
@@ -903,8 +1077,8 @@ def profile_main_path(arch: str, n_requests: int) -> None:
                           ("flash_attention", ("flash_mma_kernel",
                                                "flash_fwd_kernel")),
                           ("ssd_scan", ("ssd_scan_kernel",))):
-        hits = [e for e in kernels if any(n in e.name for n in names)]
-        t = sum(e.device_time_total for e in hits) / 1e3
+        hits = [us for name, us in kernels if any(n in name for n in names)]
+        t = sum(hits) / 1e3
         print(f"[profile]   {kernel}: {t:.3f} ms = "
               f"{100 * t / 1e3 / busy:.2f}% of busy, {t / ticks:.4f} ms "
               f"per tick, {len(hits)} kernels traced")
@@ -915,14 +1089,91 @@ def profile_main_path(arch: str, n_requests: int) -> None:
                 fail(f"{arch} profile: {len(hits)} ssd_scan kernels traced "
                      f"for {ssd_launches} launches")
     by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    for name, us in kernels:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us / 1e3)
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / 1e3 / busy:5.1f}% "
               f"x{n:6d}  {name[:90]}")
+    if arch in FAMILY_ARCHS:
+        profile_decode_steps(arch, model, engine.cache, 1e3 * busy / ticks)
     del model, engine
-    torch.cuda.empty_cache()
+    free_card()
+
+
+def profile_decode_steps(arch: str, model, cache: dict, busy_per_tick: float,
+                         n_steps: int = 4) -> None:
+    """One decode step of all 32 slots at full width, against its bytes
+    bound: every weight read once (the embedding table: the B rows a
+    step gathers) and each slot's cached keys and values (and int8
+    scales) once.  ``n_steps`` steps under torch.profiler with the host's
+    operators and their input shapes: device ms per step, the MoE
+    experts' share (the ``aten::bmm`` calls on the stacked expert
+    weights), and a check that no operator copies a weight tensor of 64
+    MB or more (a permuted expert contraction would copy 1.2 GB a layer
+    and step).  Fails on such a copy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    B = cache["pos"].shape[0]
+    emb = model.embed.weight if model.embed is not None else None
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters()
+                  if p is not emb)
+    if emb is not None:
+        w_bytes += B * emb.shape[1] * emb.element_size()
+    kv_len = cache["pos"].clamp(max=cache["k"].shape[2]).sum().item()
+    per_entry = sum(cache[k][0, 0, 0].numel() * cache[k].element_size()
+                    for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+    kv_bytes = cfg.n_layers * kv_len * per_entry
+    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    big = {tuple(p.shape) for p in model.parameters()
+           if p.numel() * p.element_size() >= 64 << 20}
+    experts = set()
+    if cfg.family == "moe":
+        m = model.layers[0].moe
+        experts = {tuple(m.w_gate.shape), tuple(m.w_down.shape)}
+    gen = torch.Generator("cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (n_steps, B), generator=gen,
+                         device="cuda")
+    model.decode_step(cache, toks[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for tok in toks:
+            model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = sum(e.device_time_total for e in kernels) / 1e3 / n_steps
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    exp_ms = sum(e.device_time_total for e in ops if e.name == "aten::bmm"
+                 and len(e.input_shapes) > 1
+                 and tuple(e.input_shapes[1]) in experts) / 1e3 / n_steps
+    copies = [e for e in ops if e.name in (
+        "aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
+        and any(tuple(sh) in big for sh in e.input_shapes)]
+    largest = max((e.device_time_total for e in kernels
+                   if "copy" in e.name.lower()), default=0) / 1e3
+    print(f"[profile] {arch} decode step, B={B}, {n_steps} steps: "
+          f"{dev:.3f} ms of device time a step against a bytes bound of "
+          f"{bound:.3f} ms ({(w_bytes + kv_bytes) / 1e9:.2f} GB: weights "
+          f"{w_bytes / 1e9:.2f}, KV cache {kv_bytes / 1e9:.3f}; "
+          f"{100 * bound / dev:.1f}% of it); the serving run's "
+          f"{busy_per_tick:.3f} ms of device time a tick is "
+          f"{busy_per_tick / bound:.2f}x the bound; {len(kernels) / n_steps:.0f} "
+          f"device ops a step; largest copy kernel {largest:.4f} ms")
+    if cfg.family == "moe":
+        print(f"[profile] {arch} MoE experts (aten::bmm on the stacked "
+              f"weights): {exp_ms:.3f} ms a step = {100 * exp_ms / dev:.1f}% "
+              f"of device time")
+        if exp_ms <= 0:
+            print(f"[profile] {arch}: no device time attributed to the "
+                  "expert bmm operators: the experts' share is not "
+                  "measured")
+    if copies:
+        fail(f"{arch} profile: {len(copies)} operators copy a weight tensor "
+             f"(e.g. {copies[0].name} {copies[0].input_shapes})")
 
 
 # ---------------------------------------------------------------------------
@@ -1493,8 +1744,11 @@ def main(argv=None) -> int:
         phase(f"{arch} full width", check_full_model, arch, 300, 320)
     for arch in DENSE_ARCHS:
         phase(f"{arch} full width", check_full_model, arch, 8, 192)
+    for arch, prompt_len, max_len, depth in FAMILY_CHECKS:
+        phase(f"{arch} full width", check_full_model, arch, prompt_len,
+              max_len, depth)
     launches = phase(f"{ARCH} serving", run_main_path, ARCH, ("sfs", "cfs"))
-    for arch in SSM_ARCHS + DENSE_ARCHS:
+    for arch in SSM_ARCHS + DENSE_ARCHS + FAMILY_ARCHS:
         for name, n in phase(f"{arch} serving", run_main_path, arch,
                              ("sfs",), 1, card).items():
             launches[name] += n
@@ -1503,7 +1757,7 @@ def main(argv=None) -> int:
                              ("sfs",), 2, card).items():
             launches[name] += n
     phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
-    for arch in SSM_ARCHS + ("gemma-7b",):
+    for arch in SSM_ARCHS + ("gemma-7b",) + FAMILY_ARCHS:
         phase(f"{arch} profile", profile_main_path, arch, 8)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)

@@ -2,11 +2,12 @@
 
 ``get(arch_id)`` returns the full-size ModelConfig; ``get_reduced(arch_id)``
 the CPU-testable variant of the same family.  ``--arch <id>`` in the
-launcher resolves through this registry.  It holds the architectures the
-port runs so far: the dense qwen2.5-3b, chatglm3-6b, gemma-7b and
-llama3-405b (the last at reduced width only: it does not fit one card),
-mamba2-1.3b (ssm) and zamba2-1.2b (hybrid).  The JAX package's registry
-(``repro.configs``) lists the rest.
+launcher resolves through this registry.  It holds every architecture
+of the JAX package's registry (``repro.configs``): the dense
+qwen2.5-3b, chatglm3-6b, gemma-7b and llama3-405b, the moe
+qwen3-moe-30b-a3b and dbrx-132b, mamba2-1.3b (ssm), zamba2-1.2b
+(hybrid), llava-next-34b (vlm) and hubert-xlarge (audio).  llama3-405b
+and dbrx-132b do not fit one card at full width and depth.
 """
 from __future__ import annotations
 
@@ -17,8 +18,12 @@ _MODULES = {
     "llama3-405b": "llama3_405b",
     "gemma-7b": "gemma_7b",
     "chatglm3-6b": "chatglm3_6b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
     "mamba2-1.3b": "mamba2_1_3b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "llava-next-34b": "llava_next_34b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 ARCH_IDS = tuple(_MODULES)

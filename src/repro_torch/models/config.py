@@ -19,8 +19,7 @@ left out.  ``attn_impl`` chooses between the plain PyTorch attention
 (``"dense"``) and the hand-written kernels (``"kernel"``, which fall back
 to their plain versions only for tensors on the CPU); for the ssm and
 hybrid families it also chooses the SSD intra-chunk step (the plain
-einsums, or the ``ssd_scan`` kernel).  The port runs the dense, ssm and
-hybrid families; moe, vlm and audio are not ported yet.
+einsums, or the ``ssd_scan`` kernel).  The port runs every family.
 """
 from __future__ import annotations
 

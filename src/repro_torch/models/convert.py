@@ -7,8 +7,13 @@ port never imports JAX.  The reference stacks layer params on a leading
 ``[out, in]``.  The padded vocabulary, the separate ``lm_head``, the
 fp32 norm scales and the Mamba mixers' ``conv_w [W, ch]`` (the port's
 ``_causal_conv`` reads it as the reference does), ``A_log``, ``dt_bias``
-and ``D`` carry over as they are.  The hybrid's shared block keeps the
-dense block's names under ``shared.``.
+and ``D`` carry over as they are.  So do a MoE block's weights: the
+router ``w_router [d, E]`` (float32) and the stacked experts
+``w_gate``/``w_up [E, d, F]`` and ``w_down [E, F, d]`` keep the
+reference's ``[E, in, out]`` layout, with no transpose (the port's
+``torch.bmm`` reads them so).  The hybrid's shared block keeps the
+dense block's names under ``shared.``; the audio family has no
+``embed``.
 """
 from __future__ import annotations
 
@@ -38,6 +43,10 @@ def _attn_block(sd: dict, prefix: str, p: dict, take, cfg: ModelConfig
     if cfg.qkv_bias:
         for name in ("q", "k", "v"):
             sd[prefix + f"attn.w{name}.bias"] = take(attn["b" + name])
+    if cfg.family == "moe":
+        for name in ("w_router", "w_gate", "w_up", "w_down"):
+            sd[prefix + f"moe.{name}"] = take(p["moe"][name])
+        return
     for name in ("w_gate", "w_up", "w_down"):
         sd[prefix + f"mlp.{name}.weight"] = take(p["mlp"][name]).T
 
@@ -55,16 +64,17 @@ def _mamba_layer(sd: dict, prefix: str, p: dict, i: int) -> None:
 
 def state_dict_from_jax(cfg: ModelConfig, np_params: dict) -> dict:
     """The ``Transformer.state_dict()`` equivalent of a reference tree."""
-    sd = {"embed.weight": np_params["embed"],
-          "final_norm.scale": np_params["final_norm"]["scale"]}
+    sd = {"final_norm.scale": np_params["final_norm"]["scale"]}
+    if cfg.family != "audio":
+        sd["embed.weight"] = np_params["embed"]
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = np.asarray(np_params["lm_head"]).T
     layers = np_params["layers"]
     for i in range(cfg.n_layers):
-        if cfg.family == "dense":
-            _attn_block(sd, f"layers.{i}.", layers, lambda a: a[i], cfg)
-        else:
+        if cfg.family in ("ssm", "hybrid"):
             _mamba_layer(sd, f"layers.{i}.", layers, i)
+        else:
+            _attn_block(sd, f"layers.{i}.", layers, lambda a: a[i], cfg)
     if cfg.family == "hybrid":
         _attn_block(sd, "shared.", np_params["shared"], lambda a: a, cfg)
     return {k: _tensor(v) for k, v in sd.items()}

@@ -32,13 +32,16 @@ NEG_INF = -1e30
 
 
 @torch.no_grad()
-def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """Truncated-normal (±2σ) fan-in init of an ``[out, in]`` weight."""
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                fan_in: Optional[int] = None) -> None:
+    """Truncated-normal (±2σ) fan-in init of an ``[out, in]`` weight, or
+    of a stack ``[E, in, out]``: the fan-in is ``w.shape[1]`` unless
+    given."""
     x = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     bound = math.erf(math.sqrt(2.0))              # 2Φ(2) - 1
     x.uniform_(-bound, bound, generator=generator)
     x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    w.copy_(x.mul_(1.0 / math.sqrt(w.shape[1])))
+    w.copy_(x.mul_(1.0 / math.sqrt(fan_in or w.shape[1])))
 
 
 @torch.no_grad()

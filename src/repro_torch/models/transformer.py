@@ -1,11 +1,18 @@
 """The decoder in PyTorch: prefill and cached decode for serving.
 
-The port of the dense, ssm and hybrid families of
-``repro.models.transformer``.  Where the reference scans stacked layer
-params with ``lax.scan``, the port keeps one module per layer in an
-``nn.ModuleList`` and loops over them:
+The port of ``repro.models.transformer``, every family.  Where the
+reference scans stacked layer params with ``lax.scan``, the port keeps
+one module per layer in an ``nn.ModuleList`` and loops over them:
 
 * dense  -- a ``DecoderBlock`` (GQA attention + gated MLP) per layer;
+* moe    -- a ``DecoderBlock`` whose feed-forward is the MoE layer
+  (``repro_torch.models.moe``); ``forward(..., return_aux=True)`` also
+  gives the summed load-balance and router-z losses;
+* vlm    -- the dense decoder; ``forward`` and ``prefill`` take optional
+  ``vision_embeds [B, P, d]`` that overwrite the first P positions (the
+  serving engine passes tokens only, as the reference's does);
+* audio  -- an encoder: no embedding table, ``forward`` takes frame
+  embeddings [B, S, d], attention is not causal, and there is no cache;
 * ssm    -- a ``MambaLayer`` (RMSNorm + Mamba2 mixer) per layer;
 * hybrid -- Mamba layers, with one ``DecoderBlock`` (``shared``, one set
   of weights) applied after each run of ``attn_every`` of them; the
@@ -15,10 +22,10 @@ params with ``lax.scan``, the port keeps one module per layer in an
 The serving cache is a dict of tensors, ``{"pos": [B] int32}`` plus, by
 family, ``"k"/"v": [L or n_apps, B, Smax, K, D]`` and ``"ssm_h": [L, B,
 H, P, N]`` (float32), ``"conv_tail": [L, B, W-1, ch]``; with
-``kv_cache_dtype="int8"`` (dense family) ``"k"/"v"`` are int8 beside
-float32 ``"k_scale"/"v_scale": [L, B, Smax, K]``.  ``decode_step``
-updates it in place (the reference returns a new cache and donates the old
-one to XLA).
+``kv_cache_dtype="int8"`` (every family but hybrid) ``"k"/"v"`` are int8
+beside float32 ``"k_scale"/"v_scale": [L, B, Smax, K]``.  ``decode_step``
+updates it in place (the reference returns a new cache and donates the
+old one to XLA).
 
 Entry points, by the reference's names: ``init_params`` is the
 ``Transformer(cfg, device=, generator=)`` constructor (its
@@ -40,9 +47,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def n_shared_apps(cfg: ModelConfig) -> int:
@@ -53,7 +59,8 @@ def n_shared_apps(cfg: ModelConfig) -> int:
 
 
 class DecoderBlock(nn.Module):
-    """One pre-norm block: GQA attention + gated MLP."""
+    """One pre-norm block: GQA attention + gated MLP (the MoE layer for
+    the moe family)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -64,24 +71,31 @@ class DecoderBlock(nn.Module):
         self.attn = L.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                 cfg.qkv_bias, device, dtype)
         self.ln2 = L.RMSNorm(d, cfg.norm_eps, device)
-        self.mlp = L.MLP(d, cfg.d_ff, cfg.activation, device, dtype)
+        self.is_moe = cfg.family == "moe"
+        if self.is_moe:
+            self.moe = MOE.MoE(d, cfg.moe, device, dtype)
+        else:
+            self.mlp = L.MLP(d, cfg.d_ff, cfg.activation, device, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        (self.moe if self.is_moe else self.mlp).reset_parameters(generator)
         with torch.no_grad():
             self.ln1.scale.fill_(1.0)
             self.ln2.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 kv_cache: Optional[tuple] = None,
-                cache_pos: Optional[torch.Tensor] = None):
+                cache_pos: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
         """Full-sequence mode (kv_cache None) or decode mode (x [B,1,d]
         against the read-only (k_cache, v_cache) of this layer, or
         (k_cache, v_cache, k_scale, v_scale) for an int8 cache).
 
-        Returns (x_out, (k, v)): this block's keys and values, not
-        quantized, for the caller to store (prefill) or commit (decode).
+        Returns (x_out, (k, v), aux): this block's keys and values, not
+        quantized, for the caller to store (prefill) or commit (decode),
+        and its MoE losses (empty for an MLP block or without
+        ``with_aux``).
         """
         h = self.ln1(x)
         q, k, v = self.attn.proj(h)
@@ -106,8 +120,12 @@ class DecoderBlock(nn.Module):
                                        k_scale=k_scale, v_scale=v_scale,
                                        extra_kv=(k, v))
         x = x + self.attn.out(o)
-        x = x + self.mlp(self.ln2(x))
-        return x, (k, v)
+        h = self.ln2(x)
+        if self.is_moe:
+            y, aux = self.moe(h, with_aux)
+        else:
+            y, aux = self.mlp(h), {}
+        return x + y, (k, v), aux
 
 
 class MambaLayer(nn.Module):
@@ -197,7 +215,7 @@ def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """The decoder of the dense, ssm and hybrid families.
+    """The model of every family.
 
     Weights are drawn from ``generator`` (a seeded ``torch.Generator`` on
     ``device``; seed 0 if None) with the reference's distributions; the
@@ -208,35 +226,35 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ported: "
-                f"{', '.join(PORTED_FAMILIES)})")
         dev = resolve_device(device)
-        dtype = getattr(torch, cfg.dtype)
+        self.dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         V, d = cfg.vocab_padded, cfg.d_model
-        self.embed = nn.utils.skip_init(nn.Embedding, V, d, device=dev,
-                                        dtype=dtype)
-        layer = DecoderBlock if cfg.family == "dense" else MambaLayer
-        self.layers = nn.ModuleList(layer(cfg, dev, dtype)
+        self.mamba = cfg.family in ("ssm", "hybrid")
+        # audio frames arrive embedded: no table
+        self.embed = (None if cfg.family == "audio" else
+                      nn.utils.skip_init(nn.Embedding, V, d, device=dev,
+                                         dtype=self.dtype))
+        layer = MambaLayer if self.mamba else DecoderBlock
+        self.layers = nn.ModuleList(layer(cfg, dev, self.dtype)
                                     for _ in range(cfg.n_layers))
-        self.shared = (DecoderBlock(cfg, dev, dtype)
+        self.shared = (DecoderBlock(cfg, dev, self.dtype)
                        if cfg.family == "hybrid" else None)
         self.final_norm = L.RMSNorm(d, cfg.norm_eps, dev)
         self.lm_head = (None if cfg.tie_embeddings
-                        else L.linear(d, V, False, dev, dtype))
+                        else L.linear(d, V, False, dev, self.dtype))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return self.final_norm.scale.device
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        L.embed_init_(self.embed.weight, generator)
+        if self.embed is not None:
+            L.embed_init_(self.embed.weight, generator)
         if self.lm_head is not None:
             L.dense_init_(self.lm_head.weight, generator)
         for blk in self._blocks():
@@ -273,11 +291,32 @@ class Transformer(nn.Module):
             segs.append((napps * k, c.n_layers, None))
         return segs
 
+    def _need_decode(self) -> None:
+        if not self.cfg.has_decode:
+            raise ValueError(f"{self.cfg.name} is encoder-only: it has no "
+                             "cache, prefill or decode step")
+
     # -- embedding / logits ------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B,S] -> [B,S,d]; audio: frames [B,S,d] in the model's
+        dtype.  vlm: ``vision_embeds`` [B,P,d] overwrite positions
+        0..P-1."""
+        c = self.cfg
+        if c.family == "audio":
+            return tokens.to(self.dtype)
         x = self.embed(tokens)
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        if c.embed_scale:
+            x = x * torch.tensor(math.sqrt(c.d_model), dtype=x.dtype)
+        if vision_embeds is not None:
+            if c.family != "vlm":
+                raise ValueError(f"{c.name} ({c.family}) takes no "
+                                 "vision_embeds")
+            P = vision_embeds.shape[1]
+            if P > x.shape[1]:
+                raise ValueError(f"{P} vision positions do not fit "
+                                 f"{x.shape[1]} tokens")
+            x[:, :P] = vision_embeds.to(x.dtype)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -291,34 +330,48 @@ class Transformer(nn.Module):
         return L.rope_angles(positions, c.head_dim, c.rope_fraction,
                              c.rope_theta)
 
+    def _positions(self, S: int, device) -> tuple:
+        """cos/sin of positions 0..S-1 (None for the ssm family)."""
+        if self.cfg.family == "ssm":
+            return None, None
+        return self._rope(torch.arange(S, device=device)[None, :])
+
     # -- full sequence -------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B,S] -> logits [B,S,V]."""
-        x = self._embed(tokens)
-        if self.cfg.family != "ssm":
-            cos, sin = self._rope(torch.arange(tokens.shape[1],
-                                               device=tokens.device)[None, :])
-        if self.cfg.family == "dense":
+    def forward(self, tokens: torch.Tensor,
+                vision_embeds: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
+        """tokens [B,S] (audio: frames [B,S,d]) -> logits [B,S,V], or
+        (logits, aux) with ``return_aux``: the MoE layers' load-balance
+        and router-z losses summed over the layers (0 for other
+        families), the reference's ``aux``."""
+        x = self._embed(tokens, vision_embeds)
+        cos, sin = self._positions(x.shape[1], x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if not self.mamba:
             for blk in self.layers:
-                x, _ = blk(x, cos, sin)
-            return self._logits(x)
-        for first, end, app in self._segments():
-            for i in range(first, end):
-                x, _ = self.layers[i](x, self._ssd_impl)
-            if app is not None:
-                x, _ = self.shared(x, cos, sin)
-        return self._logits(x)
+                x, _, blk_aux = blk(x, cos, sin, with_aux=return_aux)
+                if blk_aux:
+                    aux = aux + blk_aux["moe_aux"] + blk_aux["moe_z"]
+        else:
+            for first, end, app in self._segments():
+                for i in range(first, end):
+                    x, _ = self.layers[i](x, self._ssd_impl)
+                if app is not None:
+                    x, _, _ = self.shared(x, cos, sin)
+        logits = self._logits(x)
+        return (logits, aux) if return_aux else logits
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """An empty serving cache for ``batch_size`` sequences."""
+        self._need_decode()
         c = self.cfg
-        dt = self.embed.weight.dtype
+        dt = self.dtype
         dev = self.device
         cache = {"pos": torch.zeros(batch_size, dtype=torch.int32,
                                     device=dev)}
-        if c.family in ("ssm", "hybrid"):
+        if self.mamba:
             s = c.ssm
             d_inner, H = M.ssm_dims(c.d_model, s)
             conv_ch = d_inner + 2 * s.n_groups * s.d_state
@@ -341,19 +394,20 @@ class Transformer(nn.Module):
         return cache
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
-        """Process the prompts tokens [B,S] (one shared length); returns
-        (cache padded to max_len, last-position logits [B,1,V])."""
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                vision_embeds: Optional[torch.Tensor] = None):
+        """Process the prompts tokens [B,S] (one shared length; vlm: with
+        optional ``vision_embeds`` [B,P,d] for the first P positions);
+        returns (cache padded to max_len, last-position logits [B,1,V])."""
+        self._need_decode()
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         cache = self.init_cache(B, max_len)
         cache["pos"].fill_(S)
-        if self.cfg.family != "ssm":
-            cos, sin = self._rope(torch.arange(S,
-                                               device=tokens.device)[None, :])
-        if self.cfg.family == "dense":
+        cos, sin = self._positions(S, x.device)
+        if not self.mamba:
             for i, blk in enumerate(self.layers):
-                x, (k, v) = blk(x, cos, sin)
+                x, (k, v), _ = blk(x, cos, sin)
                 _store_layer(cache, i, k, v)
             return cache, self._logits(x[:, -1:, :])
         for first, end, app in self._segments():
@@ -362,7 +416,7 @@ class Transformer(nn.Module):
                 cache["ssm_h"][i] = st["h"]
                 cache["conv_tail"][i] = st["conv_tail"]
             if app is not None:
-                x, (k, v) = self.shared(x, cos, sin)
+                x, (k, v), _ = self.shared(x, cos, sin)
                 _store_layer(cache, app, k, v)
         return cache, self._logits(x[:, -1:, :])
 
@@ -375,8 +429,11 @@ class Transformer(nn.Module):
         supports continuous batching: inactive slots do not advance their
         position and keep their SSM state and conv tail bit for bit (the
         KV written at their frozen position is overwritten when the slot
-        resumes, so attention never reads it).
+        resumes, so attention never reads it).  A MoE layer routes each
+        sequence on its own, so inactive slots take no expert capacity
+        from active ones.
         """
+        self._need_decode()
         if tokens.dim() == 1:
             tokens = tokens[:, None]
         pos = cache["pos"]
@@ -384,11 +441,12 @@ class Transformer(nn.Module):
         if self.cfg.family != "ssm":
             cos, sin = self._rope(pos[:, None])
         keys = _kv_keys(cache)
-        if self.cfg.family == "dense":
+        if not self.mamba:
             for i, blk in enumerate(self.layers):
-                x, (k, v) = blk(x, cos, sin,
-                                kv_cache=tuple(cache[key][i] for key in keys),
-                                cache_pos=pos)
+                x, (k, v), _ = blk(
+                    x, cos, sin,
+                    kv_cache=tuple(cache[key][i] for key in keys),
+                    cache_pos=pos)
                 # this layer's attention is done: commit its entries now
                 _commit_layer(cache, i, k, v, pos)
         else:
@@ -399,7 +457,7 @@ class Transformer(nn.Module):
                     _keep_inactive(cache["ssm_h"][i], h, active)
                     _keep_inactive(cache["conv_tail"][i], tail, active)
                 if app is not None:
-                    x, (k, v) = self.shared(
+                    x, (k, v), _ = self.shared(
                         x, cos, sin, kv_cache=(cache["k"][app],
                                                cache["v"][app]),
                         cache_pos=pos)

@@ -90,6 +90,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serving.cluster\n"
             "import repro_torch.serving.router\n"
             "import repro_torch.serving.vector_cluster\n"
+            "import repro_torch.models.frontends\n"
+            "import repro_torch.models.moe\n"
             "from repro_torch import ExperimentSpec, run_experiment\n"
             "from repro_torch.core.spec import TickWorkloadSpec\n"
             "for engine in ('torch', 'tick', 'vector'):\n"

@@ -15,7 +15,6 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import transformer as T  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.models.config import MoEConfig  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import Transformer, _commit_kv  # noqa: E402
 
@@ -194,12 +193,19 @@ def test_random_init_is_seeded_and_scaled():
     assert a.layers[0].ln1.scale.dtype == torch.float32
 
 
-def test_only_the_dense_family_is_ported():
-    """Of the families, dense, ssm and hybrid are ported (the last two in
-    tests/test_torch_mamba.py); moe, vlm and audio still raise."""
-    for family in ("moe", "vlm", "audio"):
-        kw = dict(family=family)
-        if family == "moe":
-            kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)
-        with pytest.raises(NotImplementedError, match=family):
-            Transformer(port_cfg(**kw), device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_family_constructs(arch):
+    """Every architecture of the reference's registry is ported: the
+    reduced config of each builds on the CPU, one per family at least,
+    with the layers its family calls for."""
+    assert set(configs.ARCH_IDS) == set(ref_configs.ARCH_IDS)
+    cfg = configs.get_reduced(arch)
+    model = Transformer(cfg, device="cpu")
+    blk = model.layers[0]
+    if cfg.family in ("ssm", "hybrid"):
+        assert hasattr(blk, "mamba")
+    else:
+        assert hasattr(blk, "moe" if cfg.family == "moe" else "mlp")
+    assert (model.embed is None) == (cfg.family == "audio")
+    assert {configs.get_reduced(a).family for a in configs.ARCH_IDS} == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"}
