@@ -80,7 +80,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    slots traced with the host's operators: device ms a step against the
    step's bytes bound, the MoE experts' share, and a failure if any
    operator copies a weight tensor of 64 MB or more;
-7. the group_pick kernel against its plain version on the card, exact
+7. training (``repro_torch.launch.train.main``): qwen2.5-3b at full
+   width and depth in bfloat16 (AdamW, batch 8 x 512, one microbatch):
+   3 steps with a checkpoint at step 3 (the reference's layout, about
+   34 GB), on to step 6 in the same process (the straight run), one
+   more step split into forward + backward and optimizer and profiled;
+   then the launcher's ``--resume`` restores the checkpoint into a
+   fresh state, which must equal the step-3 state bit for bit (a
+   position-weighted sum of every tensor's raw bits), and its steps 4-6
+   must be within rel 1e-2 of the straight run's losses and gradient
+   norms (CUDA's embedding backward may add with atomics); loss, |g|,
+   ms per step, tokens/s and peak memory printed;
+   mamba2-1.3b at full width and depth (bfloat16, 2 microbatches, scan
+   accumulation), 3 steps; "train parity": one float32 step on the card
+   against the same step on the host CPU from the same weights and
+   batch, for qwen2.5-3b at full width cut to 2 layers (AdamW) and
+   reduced llama3-405b (Adafactor, fused, 2 microbatches): the loss to
+   rel 1e-5, each gradient to 1e-4 x its max |g|, the params after the
+   update (AdamW: where |g| is within 100x that tolerance they may
+   differ by up to 2 lr_t); reduced qwen2.5-3b's loss must fall by more
+   than 0.3 in 25 steps; no hand-written kernel launches in any of it;
+8. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 100,
    256, 1024, 4096} (both variants, every register width) and kmax in
    {1, 4, 8, 40}, with heavy vruntime ties, ~30% empty slots, an empty
@@ -89,12 +109,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel's device time) at the fleet shape; with ``--old-csrc DIR``, an
    earlier ssd_scan.cu and group_pick.cu from DIR built and timed against
    the present ones in turns (old, new, new, old) on the same inputs;
-8. "fleet 64x4": the fleet backend at 64 engines x 4 lanes (250
+9. "fleet 64x4": the fleet backend at 64 engines x 4 lanes (250
    requests, sfs-aware, history predictor): the CUDA run equals the
    port's own CPU run, and the port's host backends (``engine="tick"``
    and ``engine="vector"``) on the same spec, in every per-request field,
    the dispatch counts, the ETA log and the overload bypasses;
-9. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
+10. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
    load 0.8, faults + retries + shedding) on the card under sfs-aware and
    hash: fingerprint and shed count equal the recorded rows of
    ``benchmarks/baselines/BENCH_cluster.json``;
@@ -120,11 +140,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the row's; then the three
    ``GOLDEN_HINTED`` SHA-256s of ``benchmarks/predict_sweep.py``; each
    row's wall (host seconds, the sum over its seeds) is printed;
-10. the fleet main path: ``repro_torch.launch.fleet`` at 1024 engines x
+11. the fleet main path: ``repro_torch.launch.fleet`` at 1024 engines x
    8 lanes, load 0.9, 500,000 requests, seed 11, under sfs-aware and
    hash: fingerprints equal the recorded rows, and group_pick launched
    once per stepped tick and 64 times per chunk;
-11. where the fleet's time goes: one short fleet run under
+12. where the fleet's time goes: one short fleet run under
    torch.profiler (device operations per tick, busy share, group_pick's
    share; reported only).
 
@@ -1177,6 +1197,370 @@ def profile_decode_steps(arch: str, model, cache: dict, busy_per_tick: float,
 
 
 # ---------------------------------------------------------------------------
+# training (repro_torch.train, repro_torch.launch.train)
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width and depth in bfloat16: 8 x 512 tokens a step,
+# one microbatch, AdamW; 6 steps, a checkpoint at step 3
+TRAIN_ARGS = ["--full", "--device", "cuda", "--batch", "8", "--seq", "512",
+              "--log-every", "1", "--seed", "0"]
+TRAIN_STEPS, TRAIN_CKPT = 6, 3
+# steps 4-6 after the restore against the continuous run: CUDA's
+# embedding backward adds with atomics, so two runs from one state
+# differ in the last bits of a bfloat16 gradient
+RESUME_RTOL = 1e-2
+# float32 train-step parity, card against the card's host CPU
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD = 1e-4          # max |g_card - g_cpu| <= this * max |g_cpu|
+PARITY_LR, PARITY_WARMUP = 1e-3, 5
+
+
+def kernel_launches() -> dict:
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.group_pick import kernel as gk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    return {"flash_attention": fk.launches, "decode_attention": dk.launches,
+            "ssd_scan": sk.launches, "group_pick": gk.launches}
+
+
+def state_bits(state) -> list:
+    """A position-weighted sum of the raw bits of every tensor of a train
+    state (params, optimizer state) plus its counters: equal lists mean
+    a bit-exact state, up to a collision of the weighted sums."""
+    import torch
+    tensors = [p for _, p in state["model"].named_parameters()]
+    opt = state["opt"]
+    for key in ("m", "v"):
+        tensors += list(opt.get(key, {}).values())
+    sums = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        flat = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for c in flat.split(1 << 26):
+            w = torch.arange(1, c.numel() + 1, device=c.device) % 65521
+            acc += (w * c.long()).sum()
+        sums.append(acc)
+    return torch.stack(sums).tolist() + [opt["count"], state["step"]]
+
+
+def print_train_log(label: str, log: list, tokens: int) -> None:
+    for r in log:
+        print(f"[train] {label} step {r['step']}: loss {r['loss']:.6f} "
+              f"|g| {r['grad_norm']:.6f} {r['ms']:.1f} ms "
+              f"{tokens / r['ms'] * 1e3:,.0f} tok/s")
+
+
+def continue_training(state, start: int, stop: int) -> list:
+    """Steps start+1..stop of the launcher's loop on ``state`` (its
+    optimizer, data and train step, as ``--full --batch 8 --seq 512
+    --seed 0`` build them), logged as ``launch.train.main`` logs."""
+    import torch
+    from repro_torch.train.data import DataConfig, DataIterator
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.step import make_train_step
+    cfg = state["model"].cfg
+    step = make_train_step(cfg, get_optimizer(cfg.optimizer))
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                 global_batch=8, seed=0), start_step=start)
+    log = []
+    for i in range(start, stop):
+        t = time.perf_counter()
+        state, m = step(state, next(it))
+        log.append({"step": i + 1, "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "ms": 1e3 * (time.perf_counter() - t)})
+    torch.cuda.synchronize()
+    return log
+
+
+def train_full_qwen() -> dict:
+    """qwen2.5-3b at full width and depth through the launcher: 3 steps
+    with a checkpoint at step 3, then on to step 6 in the same process
+    (the straight run); the launcher's resume restores the checkpoint
+    into a fresh state, which must equal the step-3 state bit for bit,
+    and its steps 4-6 must equal the straight run's within RESUME_RTOL."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import train as launch
+    tokens = 8 * 512
+    base = TRAIN_ARGS + ["--arch", ARCH, "--steps", str(TRAIN_CKPT),
+                         "--ckpt-dir"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t = time.perf_counter()
+        state, cont = launch.main(base + [d, "--ckpt-every",
+                                          str(TRAIN_CKPT)])
+        save_s = time.perf_counter() - t - sum(r["ms"] for r in cont) / 1e3
+        want = state_bits(state)
+        cont += continue_training(state, TRAIN_CKPT, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in state["model"].parameters())
+        prof = profile_train_step(state)
+        del state
+        free_card()
+        print_train_log("straight", cont, tokens)
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(d) for f in fs)
+        # --steps 3 with --resume: the restored state, no step taken
+        t = time.perf_counter()
+        state, none = launch.main(base + [d, "--resume"])
+        restore_s = time.perf_counter() - t
+        if none or state_bits(state) != want:
+            fail("the restored checkpoint is not the saved state bit for "
+                 "bit")
+        print(f"[train] checkpoint step {TRAIN_CKPT}: {nbytes / 1e9:.2f} GB; "
+              f"the launcher's init, 3 steps' host snapshot and write took "
+              f"{save_s:.1f} s beside the steps, its init and restore "
+              f"{restore_s:.1f} s; restored bit for bit")
+        res = continue_training(state, TRAIN_CKPT, TRAIN_STEPS)
+        del state
+        free_card()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print_train_log("resumed", res, tokens)
+    worst = 0.0
+    for a, b in zip(res, cont[TRAIN_CKPT:]):
+        for key in ("loss", "grad_norm"):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            worst = max(worst, rel)
+            if not np.isfinite(a[key]) or rel > RESUME_RTOL:
+                fail(f"resumed step {a['step']} {key} {a[key]} against "
+                     f"{b[key]} straight (rel {rel:.3g} > {RESUME_RTOL})")
+    ms = float(np.median([r["ms"] for r in cont[1:]]))
+    print(f"[train] {ARCH} full: {n_params / 1e9:.3f} B params, bf16, "
+          f"AdamW, batch 8 x 512; median step {ms:.1f} ms "
+          f"({tokens / ms * 1e3:,.0f} tok/s) over steps 2-{TRAIN_STEPS}; "
+          f"peak {peak / 2**30:.2f} GiB allocated; resumed steps within "
+          f"rel {worst:.3g} of the straight run")
+    return {"ms": ms, "peak_gib": peak / 2**30, **prof}
+
+
+def train_step_flops(cfg, B: int, S: int) -> tuple:
+    """(bf16 GEMM FLOP, float32 attention FLOP) of one dense train step
+    under per-layer remat: 6 x matmul params x tokens, the layers'
+    forward once more, and the plain attention's two float32 einsums
+    (every (q, k) pair, 4 passes: forward, recompute, two backward)."""
+    T = B * S
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    layer = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
+    head = d * cfg.vocab_padded
+    gemm = 6 * (cfg.n_layers * layer + head) * T + 2 * cfg.n_layers * layer * T
+    attn = 4 * cfg.n_layers * 4 * B * cfg.n_heads * S * S * cfg.head_dim
+    return gemm, attn
+
+
+def profile_train_step(state) -> dict:
+    """One more full-width step, split by CUDA events into forward +
+    backward and the optimizer, then a whole step under torch.profiler
+    (device activity only): busy share and the operations bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.step import make_train_step
+    model = state["model"]
+    cfg = model.cfg
+    opt = get_optimizer(cfg.optimizer)
+    B, S = 8, 512
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B, seed=1), 100)
+    dev = {k: v.to(model.device) for k, v in batch.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    names, params = zip(*model.named_parameters())
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = loss_fn(model, dev)
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    ev[1].record()
+    opt.update(grads, state["opt"], model)
+    ev[2].record()
+    torch.cuda.synchronize()
+    fb_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del grads, loss
+    step = make_train_step(cfg, opt)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    gemm_ms = sum(e.device_time_total for e in kern
+                  if re.search(r"gemm|sm90|cutlass|nvjet", e.name)) / 1e3
+    gemm, attn = train_step_flops(cfg, B, S)
+    bound_ms = (gemm / PEAK_FLOPS["bfloat16"]
+                + attn / PEAK_FLOPS["float32"]) * 1e3
+    print(f"[train] {cfg.name} step split: forward+backward {fb_ms:.1f} ms, "
+          f"optimizer {opt_ms:.1f} ms (CUDA events); profiled step "
+          f"{wall:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%), {len(kern)} device ops, GEMM "
+          f"kernels {gemm_ms:.1f} ms; operations bound {bound_ms:.1f} ms "
+          f"({gemm:.3g} bf16 GEMM FLOP, {attn:.3g} f32 attention FLOP)")
+    return {"fb_ms": fb_ms, "opt_ms": opt_ms, "busy": busy / wall,
+            "bound_ms": bound_ms}
+
+
+def train_full_mamba() -> None:
+    """mamba2-1.3b at full width and depth: bf16, microbatch 2 (its
+    config's), scan accumulation in float32, 3 steps."""
+    import torch
+    from repro_torch.launch import train as launch
+    arch = "mamba2-1.3b"
+    state, log = launch.main(TRAIN_ARGS + ["--arch", arch, "--steps", "3"])
+    cfg = state["model"].cfg
+    if cfg.microbatch != 2 or cfg.grad_accum != "scan":
+        fail(f"{arch} trained with microbatch {cfg.microbatch}, "
+             f"{cfg.grad_accum}")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    del state
+    free_card()
+    print_train_log(arch, log, 8 * 512)
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in log):
+        fail(f"{arch}: a non-finite loss or gradient norm")
+    print(f"[train] {arch} full: {n_params / 1e9:.3f} B params, median "
+          f"step {np.median([r['ms'] for r in log[1:]]):.1f} ms, peak "
+          f"{peak / 2**30:.2f} GiB allocated")
+
+
+def parity_case(label, cfg, batch_cfg) -> None:
+    """One float32 train step on the card against the same step on the
+    host CPU, from the same weights and batch: the loss, every gradient,
+    then the params and the optimizer state after the update."""
+    import copy
+    import torch
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.step import init_train_state, make_train_step
+    o = get_optimizer(cfg.optimizer, lr=PARITY_LR,
+                      warmup_steps=PARITY_WARMUP)
+    card = init_train_state(cfg, o, device="cuda")
+    # the same weights on the host (a copy: drawing them there is slow)
+    model = copy.deepcopy(card["model"]).cpu()
+    cpu = {"model": model, "opt": o.init(model), "step": 0}
+    batch = make_batch(batch_cfg, 0)
+
+    def loss_and_grads(state):
+        model = state["model"]
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        l, _ = loss_fn(model, b)
+        names, params = zip(*model.named_parameters())
+        return l.item(), dict(zip(names, torch.autograd.grad(l, params)))
+
+    l_cpu, g_cpu = loss_and_grads(cpu)
+    l_card, g_card = loss_and_grads(card)
+    if abs(l_card - l_cpu) > PARITY_LOSS_RTOL * abs(l_cpu):
+        fail(f"{label}: loss {l_card} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for name, g in g_cpu.items():
+        gmax = g.abs().max().item()
+        err = (g_card[name].cpu() - g).abs().max().item()
+        worst = max(worst, err / max(gmax, 1e-30))
+        if err > PARITY_GRAD * gmax:
+            fail(f"{label}: grad {name} max|card - cpu| {err:.3g} > "
+                 f"{PARITY_GRAD} * {gmax:.3g}")
+    del g_card
+    step = make_train_step(cfg, o)
+    cpu, m_cpu = step(cpu, batch)
+    card, m_card = step(card, batch)
+    for key in ("loss", "grad_norm"):
+        a, b = float(m_card[key]), float(m_cpu[key])
+        if abs(a - b) > max(PARITY_LOSS_RTOL, PARITY_GRAD) * abs(b):
+            fail(f"{label}: {key} {a} on the card, {b} on the CPU")
+    # AdamW's first update is near sign(g): where |g| is within 100x the
+    # gradient tolerance the two may differ by up to 2 lr_t
+    lr_t = PARITY_LR * min(1.0, 2 / PARITY_WARMUP)
+    p_card = dict(card["model"].named_parameters())
+    for name, p in cpu["model"].named_parameters():
+        g = g_cpu[name]
+        d = (p_card[name].detach().cpu() - p.detach()).abs()
+        if cfg.optimizer == "adamw":
+            sure = g.abs() > 100 * PARITY_GRAD * g.abs().max()
+            tight = d[sure].max().item() if bool(sure.any()) else 0.0
+            if tight > 1e-6 + 1e-5 * p.detach().abs().max().item() \
+                    or d.max().item() > 2 * lr_t + 1e-6:
+                fail(f"{label}: param {name} after the update: "
+                     f"{tight:.3g} where |g| decides, {d.max().item():.3g} "
+                     "overall")
+        elif d.max().item() > 1e-6 + 1e-5 * p.detach().abs().max().item():
+            fail(f"{label}: param {name} after the update differs by "
+                 f"{d.max().item():.3g}")
+    print(f"[parity] {label}: loss {l_card:.7f} (cpu {l_cpu:.7f}), worst "
+          f"grad max|card - cpu| / max|g| {worst:.3g}, |g| "
+          f"{float(m_card['grad_norm']):.6f} (cpu "
+          f"{float(m_cpu['grad_norm']):.6f})")
+
+
+def train_parity() -> None:
+    """qwen2.5-3b at full width cut to 2 layers (AdamW, one microbatch),
+    and reduced llama3-405b (Adafactor, fused, 2 microbatches)."""
+    from repro_torch import configs
+    from repro_torch.train.data import DataConfig
+    cfg = configs.get(ARCH).replace(n_layers=2, dtype="float32")
+    parity_case(f"{ARCH} full width, 2 layers", cfg,
+                DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                           seed=5))
+    free_card()
+    cfg = configs.get_reduced("llama3-405b").replace(dtype="float32")
+    parity_case("llama3-405b reduced", cfg,
+                DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                           seed=5))
+
+
+def train_reduced_qwen() -> None:
+    """As tests/test_train.py's test_loss_decreases, on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.train.data import DataConfig, DataIterator
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = configs.get_reduced(ARCH)
+    o = adamw(lr=1e-3, warmup_steps=5)
+    state = init_train_state(cfg, o, device="cuda")
+    step = make_train_step(cfg, o)
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                 global_batch=4, seed=3))
+    losses = []
+    for _ in range(25):
+        state, m = step(state, next(it))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    print(f"[train] {ARCH} reduced: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} in 25 steps")
+    if not losses[-1] < losses[0] - 0.3:
+        fail(f"reduced {ARCH}: loss fell {losses[0] - losses[-1]:.4f}, "
+             "not more than 0.3")
+
+
+def run_training() -> dict:
+    """Every training phase; no hand-written kernel may launch in them
+    (training runs the plain paths)."""
+    before = kernel_launches()
+    out = {}
+    t = time.perf_counter()
+    out["qwen"] = train_full_qwen()
+    print(f"[time]   {ARCH} train: {time.perf_counter() - t:.1f} s")
+    for label, fn in (("mamba2-1.3b train", train_full_mamba),
+                      ("train parity", train_parity),
+                      (f"reduced {ARCH}", train_reduced_qwen)):
+        t = time.perf_counter()
+        fn()
+        print(f"[time]   {label}: {time.perf_counter() - t:.1f} s")
+    if kernel_launches() != before:
+        fail(f"training launched a kernel: {before} -> {kernel_launches()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the fleet-stepping path (repro_torch.serving.torch_cluster)
 # ---------------------------------------------------------------------------
 
@@ -1759,6 +2143,7 @@ def main(argv=None) -> int:
     phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
     for arch in SSM_ARCHS + ("gemma-7b",) + FAMILY_ARCHS:
         phase(f"{arch} profile", profile_main_path, arch, 8)
+    phase("training", run_training)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)
     phase("chaos", check_chaos)

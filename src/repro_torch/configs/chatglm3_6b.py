@@ -2,8 +2,8 @@
 [arXiv:2406.12793; hf].  ChatGLM rotates only half the head dim —
 realized as rope_fraction=0.5.
 
-A copy of ``repro.configs.chatglm3_6b`` without the TPU-only knobs
-(``microbatch``, ``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.chatglm3_6b`` without the blocked attention's
+chunks (``q_chunk``, ``kv_chunk``).
 """
 from repro_torch.models.config import ModelConfig
 
@@ -16,6 +16,7 @@ def full() -> ModelConfig:
         n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2, head_dim=128,
         d_ff=13696, vocab=65024,
         qkv_bias=True, rope_fraction=0.5,
+        microbatch=2,
     )
 
 

@@ -1,8 +1,8 @@
 """gemma-7b [dense] — GeGLU, head_dim=256, tied embeddings.  [arXiv:2403.08295]
 
-A copy of ``repro.configs.gemma_7b`` without the TPU-only knobs
-(``microbatch``, ``q_chunk``, ``kv_chunk``).  The full config serves from
-an int8 KV cache with per-token-head scales.
+A copy of ``repro.configs.gemma_7b`` without the blocked attention's
+chunks (``q_chunk``, ``kv_chunk``). The full config serves from an int8
+KV cache with per-token-head scales.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -15,6 +15,8 @@ def full() -> ModelConfig:
         n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256,
         d_ff=24576, vocab=256000,
         activation="geglu", tie_embeddings=True, embed_scale=True,
+        # 256k-vocab logits in fp32 dominate transient memory — microbatch
+        microbatch=4,
         kv_cache_dtype="int8",
     )
 

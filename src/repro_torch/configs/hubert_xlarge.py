@@ -6,8 +6,8 @@ feature encoder is the stubbed frontend,
 ``repro_torch.models.frontends.synth_audio_frames``).  Encoder-only:
 attention is not causal and there is no cache or decode step.
 
-A copy of ``repro.configs.hubert_xlarge`` without the TPU-only knobs
-(``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.hubert_xlarge`` without the blocked
+attention's chunks (``q_chunk``, ``kv_chunk``).
 """
 from repro_torch.models.config import ModelConfig
 

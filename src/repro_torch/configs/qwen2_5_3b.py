@@ -1,7 +1,7 @@
 """qwen2.5-3b [dense] — GQA (kv=2), QKV bias.  [hf:Qwen/Qwen2.5-*; hf]
 
-A copy of ``repro.configs.qwen2_5_3b`` without the TPU-only knobs
-(``microbatch``, ``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.qwen2_5_3b`` without the blocked attention's
+chunks (``q_chunk``, ``kv_chunk``).
 """
 from repro_torch.models.config import ModelConfig
 
@@ -14,6 +14,7 @@ def full() -> ModelConfig:
         n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2, head_dim=128,
         d_ff=11008, vocab=151936,
         qkv_bias=True, rope_theta=1_000_000.0,
+        microbatch=1,
     )
 
 

@@ -5,8 +5,9 @@ The shared transformer block (attention + MLP, d_ff=8192) reuses one set of
 parameters at each application (Zamba2's parameter-sharing memory saving;
 the per-invocation LoRA deltas are omitted, as in the reference).
 
-A copy of ``repro.configs.zamba2_1_2b`` without the TPU-only knobs
-(``microbatch``, ``fsdp``, ``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.zamba2_1_2b`` without the sharding knob
+(``fsdp``) and the blocked attention's chunks (``q_chunk``,
+``kv_chunk``).
 """
 from repro_torch.models.config import ModelConfig, SSMConfig
 
@@ -19,7 +20,7 @@ def full() -> ModelConfig:
         n_layers=38, d_model=2048, n_heads=32, n_kv_heads=32, head_dim=64,
         d_ff=8192, vocab=32000,
         ssm=SSMConfig(d_state=64, head_dim=64, expand=2),
-        attn_every=6,
+        attn_every=6, microbatch=4,
     )
 
 

@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "group_pick", "ssd_scan")
@@ -88,3 +90,18 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise if grad is enabled and an input requires grad.
+
+    A ctypes launch writes its output outside autograd, so the output
+    would be silently detached from the inputs; no kernel here has a
+    backward, and training runs the plain versions.  ``None`` inputs are
+    skipped.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad; the CUDA "
+                           "kernel has no backward (train with "
+                           "attn_impl='dense')")

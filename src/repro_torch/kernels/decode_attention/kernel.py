@@ -52,6 +52,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_scale, v_scale [B,Smax,K]; kv_len: [B] int32; k_new,v_new: [B,K,D]
     in q's dtype, or None; all on one CUDA device -> [B,H,D]."""
     global launches
+    _build.check_no_grad("decode_attention", q, k, v, kv_len, k_new, v_new,
+                         k_scale, v_scale)
     check_shapes(q, k, v, kv_len, k_new, v_new, k_scale, v_scale)
     int8 = k.dtype == torch.int8
     named = [("q", q, q.dtype), ("kv_len", kv_len, torch.int32)]

@@ -35,6 +35,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: [B,Sq,H,D]; k,v: [B,Skv,K,D] on one CUDA device -> [B,Sq,H,D]."""
     global launches
+    _build.check_no_grad("flash_attention", q, k, v)
     check_shapes(q, k, v, causal)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:

@@ -29,6 +29,7 @@ def pick_order_cuda(vr: torch.Tensor, rid: torch.Tensor,
     """vr, rid: [G, CAP] int32, contiguous, on one CUDA device ->
     [G, kmax] int32 pool positions."""
     global launches
+    _build.check_no_grad("group_pick", vr, rid)
     check_shapes(vr, rid, kmax)
     for name, t in (("vr", vr), ("rid", rid)):
         if not t.is_cuda or t.device != vr.device:

@@ -36,6 +36,7 @@ def ssd_intra_chunk_cuda(xc: torch.Tensor, dtc: torch.Tensor,
     [b,nc,H], Bc/Cc [b,nc,Q,1,N] float32; all contiguous on one CUDA
     device -> (y_intra [b,nc,Q,H,P], states [b,nc,H,P,N]), float32."""
     global launches
+    _build.check_no_grad("ssd_scan", xc, dtc, cum, tot, Bc, Cc)
     check_shapes(xc, dtc, cum, tot, Bc, Cc)
     named = (("xc", xc), ("dtc", dtc), ("cum", cum), ("tot", tot),
              ("Bc", Bc), ("Cc", Cc))

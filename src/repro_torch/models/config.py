@@ -13,13 +13,16 @@
 
 A copy of ``repro.models.config`` (the JAX package's module) with
 ``SSMConfig`` and ``MoEConfig`` carried inline, so that nothing here
-imports the JAX package.  The knobs that only steered XLA on a TPU
-(chunk sizes, remat, layer scan, sharding, gradient accumulation) are
-left out.  ``attn_impl`` chooses between the plain PyTorch attention
-(``"dense"``) and the hand-written kernels (``"kernel"``, which fall back
-to their plain versions only for tensors on the CPU); for the ssm and
-hybrid families it also chooses the SSD intra-chunk step (the plain
-einsums, or the ``ssd_scan`` kernel).  The port runs every family.
+imports the JAX package.  The training knobs (``remat``, ``microbatch``,
+``grad_accum``, ``grad_accum_dtype``, ``optimizer``) are the
+reference's; the sharding knobs (``fsdp``, ``sharding_profile``), the
+layer scan and the blocked attention's chunks are left out.
+``attn_impl`` chooses between the plain PyTorch attention (``"dense"``)
+and the hand-written kernels (``"kernel"``, which fall back to their
+plain versions only for tensors on the CPU); for the ssm and hybrid
+families it also chooses the SSD intra-chunk step (the plain einsums,
+or the ``ssd_scan`` kernel).  Training runs the plain paths
+(``repro_torch.train.step``).  The port runs every family.
 """
 from __future__ import annotations
 
@@ -79,6 +82,18 @@ class ModelConfig:
     n_prefix: int = 0                # vlm: vision-embedding positions
     # ---- attention implementation and dtypes (not architecture) ----
     attn_impl: str = "kernel"        # dense | kernel
+    # ---- training (repro_torch.train) ----
+    remat: str = "block"             # none | block: recompute each layer
+    microbatch: int = 1              # microbatches per train step
+    # grad accumulation over microbatches:
+    #   scan   — each microbatch's gradient, scaled by 1/n, added to a
+    #            buffer in grad_accum_dtype
+    #   unroll — the same (the reference's unrolled loop)
+    #   fused  — one backward per microbatch into .grad, in the
+    #            parameters' dtype (no separate buffer)
+    grad_accum: str = "scan"
+    grad_accum_dtype: str = "float32"   # float32 | bfloat16 (scan/unroll)
+    optimizer: str = "adamw"         # adamw | adafactor
     # dtype of parameters and activations, and of the KV cache unless
     # kv_cache_dtype is "int8"
     dtype: str = "bfloat16"
@@ -103,6 +118,16 @@ class ModelConfig:
         if self.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bfloat16' or "
                              f"'int8', got {self.kv_cache_dtype!r}")
+        for name, allowed in (("remat", ("none", "block")),
+                              ("grad_accum", ("scan", "unroll", "fused")),
+                              ("grad_accum_dtype", ("float32", "bfloat16")),
+                              ("optimizer", ("adamw", "adafactor"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+        if self.microbatch < 1:
+            raise ValueError(f"microbatch must be at least 1, got "
+                             f"{self.microbatch}")
 
     @property
     def causal(self) -> bool:

@@ -32,7 +32,9 @@ Entry points, by the reference's names: ``init_params`` is the
 ``reset_parameters``); ``Transformer.forward`` (full-sequence logits),
 ``prefill`` (prompt -> cache + last logits), ``init_cache`` and
 ``decode_step`` (one token per sequence, with an optional ``active``
-mask for continuous batching).
+mask for continuous batching).  These run without grad; training goes
+through ``logits_and_aux`` (``forward``'s body, under per-layer remat)
+and ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
@@ -345,22 +348,50 @@ class Transformer(nn.Module):
         (logits, aux) with ``return_aux``: the MoE layers' load-balance
         and router-z losses summed over the layers (0 for other
         families), the reference's ``aux``."""
+        logits, aux = self.logits_and_aux(tokens, vision_embeds, return_aux)
+        return (logits, aux) if return_aux else logits
+
+    def logits_and_aux(self, tokens: torch.Tensor,
+                       vision_embeds: Optional[torch.Tensor] = None,
+                       with_aux: bool = True):
+        """``forward``'s body, differentiable: (logits, aux).
+
+        With ``remat == "block"`` and grad enabled, each layer and each
+        application of the hybrid's shared block runs under
+        ``torch.utils.checkpoint``: only its input stays live for the
+        backward, which recomputes the rest (the reference's
+        ``jax.checkpoint`` of the scan body).
+        """
         x = self._embed(tokens, vision_embeds)
         cos, sin = self._positions(x.shape[1], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat == "block" and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        def block(blk, xx):
+            xo, _, blk_aux = blk(xx, cos, sin, with_aux=with_aux)
+            if blk_aux:
+                return xo, blk_aux["moe_aux"] + blk_aux["moe_z"]
+            return xo, None
+
         if not self.mamba:
             for blk in self.layers:
-                x, _, blk_aux = blk(x, cos, sin, with_aux=return_aux)
-                if blk_aux:
-                    aux = aux + blk_aux["moe_aux"] + blk_aux["moe_z"]
+                x, blk_aux = run(block, blk, x)
+                if blk_aux is not None:
+                    aux = aux + blk_aux
         else:
+            def mamba(i, xx):
+                return self.layers[i](xx, self._ssd_impl)[0]
             for first, end, app in self._segments():
                 for i in range(first, end):
-                    x, _ = self.layers[i](x, self._ssd_impl)
+                    x = run(mamba, i, x)
                 if app is not None:
-                    x, _, _ = self.shared(x, cos, sin)
-        logits = self._logits(x)
-        return (logits, aux) if return_aux else logits
+                    x = run(block, self.shared, x)[0]
+        return self._logits(x), aux
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
@@ -467,3 +498,27 @@ class Transformer(nn.Module):
         else:
             pos.add_(active.to(torch.int32))
         return cache, self._logits(x)
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """Cross-entropy LM loss; labels == -1 are masked (prefix/pad).
+
+    The port of the reference's ``loss_fn``: ``batch`` holds ``labels``
+    [B,S] and ``tokens`` [B,S] (audio: ``frames`` [B,S,d]; vlm: optional
+    ``vision_embeds`` [B,P,d]).  The cross-entropy is taken in float32;
+    the MoE layers' aux losses are added.  Returns (loss + aux,
+    {"loss", "aux", "tokens"}).
+    """
+    c = model.cfg
+    inp = batch["frames"] if c.family == "audio" else batch["tokens"]
+    ve = batch.get("vision_embeds") if c.family == "vlm" else None
+    logits, aux = model.logits_and_aux(inp, ve)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    lbl = labels.clamp_min(0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lbl[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    return loss + aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}
