@@ -100,6 +100,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    update (AdamW: where |g| is within 100x that tolerance they may
    differ by up to 2 lr_t); reduced qwen2.5-3b's loss must fall by more
    than 0.3 in 25 steps; no hand-written kernel launches in any of it;
+   "sharded training": qwen2.5-3b at full width and depth (bfloat16,
+   AdamW, batch 8 x 512) takes 2 steps sharded by ``Plan(mesh,
+   fsdp=cfg.fsdp)`` on the ``(1, 1)`` ``("data", "model")`` mesh of
+   ``make_host_mesh`` (a one-rank NCCL group) and 2 unsharded steps from
+   the same seed and batches: both losses and gradient norms (bit-equal,
+   or the first loss within rel 1e-5, the rest within 1e-2),
+   ms a step, peak memory, and the collectives of one more sharded step
+   by op (the functional collectives DTensor runs, as CommDebugMode
+   counts them);
+   "dry run": ``python -m repro_torch.launch.dryrun`` on the card's host
+   for qwen2.5-3b ``train_4k`` and ``decode_32k`` on pod16x16 and
+   qwen3-moe-30b-a3b ``prefill_32k`` on pod2x16x16 (fake process groups
+   of 256 and 512 ranks, fake CUDA tensors): each record's per-device
+   state and peak bytes, FLOPs, collectives by op and seconds;
 8. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 100,
    256, 1024, 4096} (both variants, every register width) and kmax in
@@ -1561,6 +1575,150 @@ def run_training() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sharding (repro_torch.sharding, repro_torch.launch.dryrun)
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 2
+# the first step's loss, sharded on the one-rank mesh against unsharded,
+# from the same weights and batch (the forward is the same arithmetic);
+# its gradient norm and the second step take RESUME_RTOL: the bfloat16
+# gradients differ in last bits (the vocab-parallel loss's float32
+# arithmetic), and AdamW's near-sign first update carries that into the
+# second step's weights
+SHARDED_RTOL = 1e-5
+# the dry run's cells on the card's host: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False),
+                ("qwen2.5-3b", "decode_32k", False),
+                ("qwen3-moe-30b-a3b", "prefill_32k", True))
+
+
+def train_steps(plan, cfg, batches, count_comms: bool) -> dict:
+    """SHARDED_STEPS steps of ``cfg`` from seed 0 (under ``plan``, or
+    unsharded): losses, gradient norms, ms a step, peak allocated memory
+    and, with ``count_comms``, the collectives of one more step, as the
+    dry run's recorder counts the functional collectives DTensor runs
+    (CommDebugMode's module tracker of torch 2.11 fails inside the
+    per-layer checkpoint: an IndexError in its forward hook)."""
+    import torch
+    from repro_torch.launch.dryrun import CellRecorder
+    from repro_torch.sharding.plan import use_plan
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.step import init_train_state, make_train_step
+    opt = get_optimizer(cfg.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(cfg, opt, device="cuda", generator=gen,
+                             plan=plan)
+    step = make_train_step(cfg, opt)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with use_plan(plan):
+            state, m = step(state, b)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t))
+        out["loss"].append(loss)
+        out["grad_norm"].append(gn)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if count_comms:
+        rec = CellRecorder([])
+        with use_plan(plan), rec:
+            step(state, batches[-1])
+        torch.cuda.synchronize()
+        out["comms"] = {}
+        for c in rec.collectives:
+            n, b = out["comms"].get(c["op"], (0, 0))
+            out["comms"][c["op"]] = (n + 1, b + c["payload_bytes"])
+    del state
+    free_card()
+    return out
+
+
+def run_sharded_training() -> None:
+    """qwen2.5-3b at full width and depth (bfloat16, AdamW, batch
+    8 x 512): SHARDED_STEPS steps sharded by ``Plan(mesh,
+    fsdp=cfg.fsdp)`` on the one-rank ``(1, 1)`` mesh of
+    ``make_host_mesh`` (a one-rank NCCL group), then as many unsharded
+    from the same seed and batches; no kernel launches."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.plan import Plan
+    from repro_torch.train.data import DataConfig, DataIterator
+    before = kernel_launches()
+    cfg = configs.get(ARCH)
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                 global_batch=8, seed=0))
+    batches = [next(it) for _ in range(SHARDED_STEPS)]
+    mesh = make_host_mesh(device_type="cuda")
+    if tuple(mesh.mesh.shape) != (1, 1):
+        fail(f"the host mesh of one card is {tuple(mesh.mesh.shape)}")
+    try:
+        sh = train_steps(Plan(mesh=mesh, fsdp=cfg.fsdp), cfg, batches, True)
+    finally:
+        dist.destroy_process_group()
+    un = train_steps(None, cfg, batches, False)
+    for label, r in (("sharded", sh), ("unsharded", un)):
+        print(f"[sharded] {ARCH} {label}: loss "
+              f"{' '.join(f'{x:.7f}' for x in r['loss'])} |g| "
+              f"{' '.join(f'{x:.6f}' for x in r['grad_norm'])}; ms a step "
+              f"{' '.join(f'{x:.1f}' for x in r['ms'])}; peak "
+              f"{r['peak_gib']:.2f} GiB allocated")
+    print(f"[sharded] collectives of one more sharded step on the (1, 1) "
+          f"mesh (count, payload B): {sh['comms']}")
+    for key in ("loss", "grad_norm"):
+        for i, (a, b) in enumerate(zip(sh[key], un[key])):
+            rel = abs(a - b) / abs(b)
+            bits = "bit-equal" if a == b else f"rel {rel:.3g}"
+            print(f"[sharded] step {i + 1} {key}: {bits}")
+            if not np.isfinite(a):
+                fail(f"sharded step {i + 1}: {key} {a}")
+            tol = SHARDED_RTOL if (i, key) == (0, "loss") else RESUME_RTOL
+            if rel > tol:
+                fail(f"sharded step {i + 1} {key} {a} against {b} "
+                     f"unsharded (rel {rel:.3g} > {tol})")
+    if kernel_launches() != before:
+        fail("sharded training launched a kernel")
+
+
+def run_dry_run() -> None:
+    """The port's dry run of DRYRUN_CELLS on a fake process group of 256
+    or 512 ranks, on the card's host (fake CUDA tensors: nothing is
+    allocated), one process a cell; each record's per-device bytes,
+    FLOPs and collectives printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--force", "--device", "cuda"]
+            + (["--multi-pod"] if multi_pod else []),
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=600)
+        if r.returncode != 0:
+            fail(f"dry run {arch} {shape} {mesh}: "
+                 f"{(r.stdout + r.stderr)[-3000:]}")
+        path = ROOT / "artifacts" / "dryrun_torch" / \
+            f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text())
+        m = rec["memory"]
+        ops = {op: (c["count"], c["payload_bytes"])
+               for op, c in rec["collectives"]["by_op"].items()}
+        print(f"[dryrun] {arch} {shape} {mesh}: params "
+              f"{m['param_bytes']} B, optimizer {m['opt_state_bytes']} B, "
+              f"cache {m['cache_bytes']} B, peak {m['peak_device_bytes']} B "
+              f"a device; {rec['cost']['flops_per_device']:.6g} FLOP a "
+              f"device; collectives (count, payload B) {ops}; "
+              f"{rec['seconds']:.1f} s traced, "
+              f"{time.perf_counter() - t:.1f} s with the process")
+        if rec["cost"]["flops_per_device"] <= 0 or not ops:
+            fail(f"dry run {arch} {shape}: an empty record")
+
+
+# ---------------------------------------------------------------------------
 # the fleet-stepping path (repro_torch.serving.torch_cluster)
 # ---------------------------------------------------------------------------
 
@@ -2144,6 +2302,8 @@ def main(argv=None) -> int:
     for arch in SSM_ARCHS + ("gemma-7b",) + FAMILY_ARCHS:
         phase(f"{arch} profile", profile_main_path, arch, 8)
     phase("training", run_training)
+    phase("sharded training", run_sharded_training)
+    phase("dry run", run_dry_run)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)
     phase("chaos", check_chaos)

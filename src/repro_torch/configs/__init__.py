@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, cell_supported,
+                                        input_specs, plan_rule_overrides)
+
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "llama3-405b": "llama3_405b",
@@ -43,4 +46,23 @@ def get_reduced(arch_id: str):
     return _mod(arch_id).reduced()
 
 
-__all__ = ["ARCH_IDS", "get", "get_reduced"]
+def all_cells() -> list[tuple[str, str]]:
+    """Every runnable (arch, shape) pair out of the 40 assigned cells."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if cell_supported(get(a), s)[0]]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for a in ARCH_IDS:
+        cfg = get(a)
+        for s in SHAPES:
+            ok, why = cell_supported(cfg, s)
+            if not ok:
+                out.append((a, s, why))
+    return out
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get", "get_reduced",
+           "all_cells", "skipped_cells", "cell_supported", "input_specs",
+           "plan_rule_overrides"]

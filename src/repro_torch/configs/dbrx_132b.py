@@ -1,7 +1,7 @@
 """dbrx-132b [moe] — 16 experts top-4, fine-grained.  [hf:databricks/dbrx-base]
 
-A copy of ``repro.configs.dbrx_132b`` without the sharding knob
-(``fsdp``) and the blocked attention's chunks (``q_chunk``,
+A copy of ``repro.configs.dbrx_132b`` without the blocked attention's
+chunks (``q_chunk``,
 ``kv_chunk``). The full config serves from an int8 KV cache with
 per-token-head scales. At full width and depth (131.6 B parameters) it
 does not fit one card; the port runs it at full width only with its
@@ -18,7 +18,7 @@ def full() -> ModelConfig:
         n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
         d_ff=0, vocab=100352,
         moe=MoEConfig(n_experts=16, top_k=4, d_ff_expert=10752),
-        optimizer="adafactor", microbatch=8, grad_accum="fused",
+        fsdp=True, optimizer="adafactor", microbatch=8, grad_accum="fused",
         kv_cache_dtype="int8",
     )
 

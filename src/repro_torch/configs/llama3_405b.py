@@ -1,7 +1,7 @@
 """llama3-405b [dense] — GQA (kv=8), 128k vocab.  [arXiv:2407.21783]
 
-A copy of ``repro.configs.llama3_405b`` without the sharding knob
-(``fsdp``) and the blocked attention's chunks (``q_chunk``,
+A copy of ``repro.configs.llama3_405b`` without the blocked attention's
+chunks (``q_chunk``,
 ``kv_chunk``). The full config serves from an int8 KV cache with
 per-token-head scales. At full width it does not fit one card; the port
 runs its reduced config.
@@ -17,7 +17,7 @@ def full() -> ModelConfig:
         n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8, head_dim=128,
         d_ff=53248, vocab=128256,
         rope_theta=500_000.0,
-        optimizer="adafactor", microbatch=16, grad_accum="fused",
+        fsdp=True, optimizer="adafactor", microbatch=16, grad_accum="fused",
         kv_cache_dtype="int8",
     )
 

@@ -1,8 +1,7 @@
 """mamba2-1.3b [ssm] — attention-free, SSD (state-space duality).
 [arXiv:2405.21060]
 
-A copy of ``repro.configs.mamba2_1_3b`` without the sharding knob
-(``fsdp``).
+A copy of ``repro.configs.mamba2_1_3b``.
 """
 from repro_torch.models.config import ModelConfig, SSMConfig
 
@@ -14,7 +13,7 @@ def full() -> ModelConfig:
         name=ARCH_ID, family="ssm",
         n_layers=48, d_model=2048, vocab=50280,
         ssm=SSMConfig(d_state=128, head_dim=64, expand=2),
-        microbatch=2,
+        microbatch=2, fsdp=True,
     )
 
 

@@ -1,8 +1,8 @@
 """qwen3-moe-30b-a3b [moe] — 128 experts top-8, fine-grained (d_ff=768).
 [hf:Qwen/Qwen3-30B-A3B]
 
-A copy of ``repro.configs.qwen3_moe_30b_a3b`` without the sharding knob
-(``fsdp``) and the blocked attention's chunks (``q_chunk``,
+A copy of ``repro.configs.qwen3_moe_30b_a3b`` without the blocked attention's
+chunks (``q_chunk``,
 ``kv_chunk``). At full width and depth it serves in bfloat16 on one 80
 GB card (30.5 B parameters).
 """
@@ -18,7 +18,7 @@ def full() -> ModelConfig:
         d_ff=0, vocab=151936,
         rope_theta=1_000_000.0,
         moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=768),
-        microbatch=2,
+        fsdp=True, microbatch=2,
     )
 
 

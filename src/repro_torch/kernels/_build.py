@@ -22,6 +22,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -92,14 +93,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_no_grad(what: str, *tensors) -> None:
-    """Raise if grad is enabled and an input requires grad.
-
-    A ctypes launch writes its output outside autograd, so the output
-    would be silently detached from the inputs; no kernel here has a
-    backward, and training runs the plain versions.  ``None`` inputs are
-    skipped.
-    """
+def check_inputs(what: str, *tensors) -> None:
+    """Raise on an input a launch cannot take as it is: a DTensor (its
+    ``data_ptr()`` is a wrapper's, not the shard's: a sharded path runs
+    the plain versions), or, with grad enabled, one that requires grad (a
+    ctypes launch writes its output outside autograd, so the output would
+    be silently detached; no kernel here has a backward, and training
+    runs the plain versions).  ``None`` inputs are skipped."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what}: a DTensor input; the CUDA kernel takes "
+                        "plain tensors (sharded models run "
+                        "attn_impl='dense')")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: an input requires grad; the CUDA "

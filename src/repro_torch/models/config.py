@@ -15,8 +15,10 @@ A copy of ``repro.models.config`` (the JAX package's module) with
 ``SSMConfig`` and ``MoEConfig`` carried inline, so that nothing here
 imports the JAX package.  The training knobs (``remat``, ``microbatch``,
 ``grad_accum``, ``grad_accum_dtype``, ``optimizer``) are the
-reference's; the sharding knobs (``fsdp``, ``sharding_profile``), the
-layer scan and the blocked attention's chunks are left out.
+reference's, and so are the sharding knobs (``fsdp``: ZeRO-3 weight
+sharding over "data"; ``sharding_profile``: the rule set the dry run
+picks, ``repro_torch.launch.dryrun.build_plan``); the layer scan and
+the blocked attention's chunks are left out.
 ``attn_impl`` chooses between the plain PyTorch attention (``"dense"``)
 and the hand-written kernels (``"kernel"``, which fall back to their
 plain versions only for tensors on the CPU); for the ssm and hybrid
@@ -94,6 +96,14 @@ class ModelConfig:
     grad_accum: str = "scan"
     grad_accum_dtype: str = "float32"   # float32 | bfloat16 (scan/unroll)
     optimizer: str = "adamw"         # adamw | adafactor
+    fsdp: bool = False
+    # sharding profile over the fixed (pod, data, model) mesh:
+    #   tp_sp     -- tensor parallel on "model" + Megatron sequence
+    #                parallelism (baseline)
+    #   fsdp_only -- no tensor parallelism: batch and ZeRO-3 weight shards
+    #                span data x model
+    #   fsdp_ep   -- fsdp_only with the experts on "model"
+    sharding_profile: str = "tp_sp"
     # dtype of parameters and activations, and of the KV cache unless
     # kv_cache_dtype is "int8"
     dtype: str = "bfloat16"
@@ -121,7 +131,9 @@ class ModelConfig:
         for name, allowed in (("remat", ("none", "block")),
                               ("grad_accum", ("scan", "unroll", "fused")),
                               ("grad_accum_dtype", ("float32", "bfloat16")),
-                              ("optimizer", ("adamw", "adafactor"))):
+                              ("optimizer", ("adamw", "adafactor")),
+                              ("sharding_profile",
+                               ("tp_sp", "fsdp_only", "fsdp_ep"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got "
                                  f"{getattr(self, name)!r}")

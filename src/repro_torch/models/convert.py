@@ -26,13 +26,14 @@ on them for nested numpy trees.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding.plan import Plan, copy_full_, full_value
 from repro_torch.train import leaves as LV
 from repro_torch.train.compression import init_error_feedback
 
@@ -89,15 +90,15 @@ def _state_entries(state: dict) -> list:
         @torch.no_grad()
         def put(arr):
             # one contiguous copy to the state's device, then the split
-            # and the transposes there
+            # and the transposes there (a sharded tensor keeps its chunk)
             arr = torch.as_tensor(arr).to(src[leaf.names[0]].device)
             for n, piece in zip(leaf.names, LV.from_ref(leaf, arr)):
-                src[n].copy_(piece)
+                copy_full_(src[n], piece)
         return shape, get, put
 
     def whole(src: dict, key):
         def put(arr):
-            src[key].copy_(torch.as_tensor(arr))
+            copy_full_(src[key], torch.as_tensor(arr))
         return tuple(src[key].shape), (lambda: src[key]), put
 
     def scalar(src: dict, key):
@@ -146,9 +147,10 @@ def load_flat_train_state(state: dict, get: Callable) -> None:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    """A CPU numpy copy; bfloat16 comes as its raw ``uint16`` bits (numpy
-    has no bfloat16: view them as ``ml_dtypes.bfloat16``)."""
-    t = t.detach().cpu()
+    """A CPU numpy copy (of the whole value: a DTensor is gathered);
+    bfloat16 comes as its raw ``uint16`` bits (numpy has no bfloat16:
+    view them as ``ml_dtypes.bfloat16``)."""
+    t = full_value(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -162,13 +164,19 @@ def train_state_to_jax(state: dict) -> dict:
     return tree
 
 
-def train_state_from_jax(state: dict, np_state: dict) -> dict:
+def train_state_from_jax(state: dict, np_state: dict,
+                         plan: Optional[Plan] = None) -> dict:
     """Load a reference train state (``jax.tree.map(np.asarray,
     state)``: params, the ``adamw`` or ``adafactor`` state, ``step`` and,
     where present, ``ef``) into a port train state of the same config
-    and optimizer (``init_train_state``), in place; returns it."""
+    and optimizer (``init_train_state``), in place; returns it.  With
+    ``plan``, the state is first placed by it (``place_state``), so the
+    reference's leaves land sharded, each rank keeping its chunk."""
     if "ef" in np_state and "ef" not in state:
         state["ef"] = init_error_feedback(state["model"])
+    if plan is not None:
+        from repro_torch.train.step import place_state
+        place_state(state, plan)
 
     def get(name):
         a = np.asarray(LV.get_path(np_state, name.split(".")))

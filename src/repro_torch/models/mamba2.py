@@ -21,11 +21,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import SSMConfig
+from repro_torch.sharding.plan import contiguous_stride, shard, to_placements
 
 
 def ssm_dims(d_model: int, cfg: SSMConfig) -> tuple[int, int]:
@@ -50,7 +52,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B:  [b, S, G, N]   input projections (G groups, heads share within group)
     C:  [b, S, G, N]   output projections
     returns (y: [b,S,H,P] in x's dtype, h_final: [b,H,P,N] float32)
+
+    DTensor inputs (under a sharding plan) run ``ssd_sharded``.
     """
+    if isinstance(x, DTensor):
+        return ssd_sharded(x, dt, A, B, C, Q, h0, impl)
     b, S_real, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     R = H // G
@@ -98,6 +104,47 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            h_prev)
     y = (y_intra + y_inter).reshape(b, S, H, P)
     return y[:, :S_real].to(x.dtype), h
+
+
+def ssd_sharded(x: DTensor, dt, A, B, C, Q: int, h0=None, impl="kernel"):
+    """``ssd_chunked`` on DTensors, run on each rank's own shard.
+
+    The scan is independent per sequence and per head, so each rank
+    runs it on its batch rows and heads: x and dt keep their batch and
+    head placements (the sequence and the head dim are gathered: the
+    chunk recurrence runs along the whole sequence), A takes the same
+    heads, and B and C (shared by the heads of a group) are whole over
+    the head-sharding mesh dims, where their gradient is a partial sum.
+    DTensor's own propagation of the chunked einsums over a 3-D mesh
+    costs seconds an op; here it sees none of them.
+    """
+    if h0 is not None:
+        raise NotImplementedError("a sharded SSD starts from zero state")
+    mesh = x.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+          for p in x.placements]
+    heads = [p.is_shard(2) for p in pl]
+    G, H = B.shape[2], x.shape[2]
+    if G > 1 and any(heads):
+        raise NotImplementedError(f"{G} B/C groups with the heads sharded")
+    x = to_placements(x, mesh, pl)
+    dt = to_placements(dt, mesh, pl)
+    A = to_placements(A, mesh, [Shard(0) if h else Replicate()
+                                for h in heads])
+    bpl = [p if p.is_shard(0) else Replicate() for p in pl]
+    bgrad = [Partial() if h else p for h, p in zip(heads, bpl)]
+    B, C = (to_placements(t, mesh, bpl).to_local(grad_placements=bgrad)
+            for t in (B, C))
+    y, h = ssd_chunked(x.to_local(), dt.to_local(), A.to_local(), B, C, Q,
+                       impl=impl)
+    b, S, _, P = x.shape
+    N = B.shape[-1]
+    hpl = [Shard(1) if hh else p for hh, p in zip(heads, bpl)]
+    return (DTensor.from_local(y.contiguous(), mesh, pl, shape=x.shape,
+                               stride=contiguous_stride(x.shape)),
+            DTensor.from_local(h.contiguous(), mesh, hpl,
+                               shape=torch.Size((b, H, P, N)),
+                               stride=contiguous_stride((b, H, P, N))))
 
 
 def ssd_reference(x, dt, A, B, C, h0: Optional[torch.Tensor] = None):
@@ -201,8 +248,12 @@ class MambaBlock(nn.Module):
     def _conv_in(self, x: torch.Tensor):
         """x [B,S,d] -> (z, conv_in [B,S,ch], dt) from in_proj."""
         c = self.cfg
-        z, xs, Bv, Cv, dt = _split_proj(self.in_proj(x), self.d_inner,
-                                        c.n_groups, c.d_state)
+        # the fused z/x/B/C/dt dim stays whole (its pieces lie at
+        # unaligned offsets; heads shard after the split), and so does
+        # the sequence (the causal conv runs along it)
+        proj = shard(self.in_proj(x), "batch", None, None)
+        z, xs, Bv, Cv, dt = _split_proj(proj, self.d_inner, c.n_groups,
+                                        c.d_state)
         return z, torch.cat([xs, Bv, Cv], dim=-1), dt
 
     def _split_conv(self, conv_out: torch.Tensor):
@@ -224,12 +275,15 @@ class MambaBlock(nn.Module):
                      else F.pad(conv_in, (0, 0, W - 1 - S, 0)))
         xs, Bv, Cv = self._split_conv(
             _causal_conv(conv_in, self.conv_w, self.conv_b))
-        xs = xs.reshape(Bsz, S, H, P)
-        dt = F.softplus(dt.float() + self.dt_bias)
+        xs = shard(xs.reshape(Bsz, S, H, P), "batch", "seq", "heads",
+                   "head_dim")
+        dt = shard(F.softplus(dt.float() + self.dt_bias), "batch", "seq",
+                   "heads")
         A = -torch.exp(self.A_log)
         y, h = ssd_chunked(xs, dt, A, Bv.reshape(Bsz, S, G, N),
                            Cv.reshape(Bsz, S, G, N), Q=min(c.chunk, S),
                            impl=impl)
+        y = shard(y, "batch", "seq", "heads", "head_dim")
         # D is float32: y becomes float32 here, as in the reference
         y = y + xs * self.D[None, None, :, None]
         y = self.gate_norm(y.reshape(Bsz, S, self.d_inner) * F.silu(z))
@@ -239,25 +293,70 @@ class MambaBlock(nn.Module):
 
     def step(self, x: torch.Tensor, h: torch.Tensor, tail: torch.Tensor):
         """One token: x [B,1,d], h [B,H,P,N] f32, tail [B,W-1,ch] ->
-        (y [B,1,d], new h, new tail)."""
-        c = self.cfg
+        (y [B,1,d], new h, new tail).  Under a plan (a DTensor state)
+        the recurrence runs on each rank's rows and heads
+        (``_recur_sharded``)."""
         Bsz = x.shape[0]
-        H, P, G, N = self.n_heads, c.head_dim, c.n_groups, c.d_state
         z, conv_in, dt = self._conv_in(x)
         conv_out = _causal_conv(conv_in, self.conv_w, self.conv_b, tail=tail)
         new_tail = torch.cat([tail[:, 1:], conv_in.to(tail.dtype)], dim=1)
         xs, Bv, Cv = self._split_conv(conv_out)
-        xs = xs.reshape(Bsz, H, P).float()
-        R = H // G
-        Bh = Bv.reshape(Bsz, G, N).float().repeat_interleave(R, dim=1)
-        Ch = Cv.reshape(Bsz, G, N).float().repeat_interleave(R, dim=1)
-        dt = F.softplus(dt.float() + self.dt_bias).reshape(Bsz, H)
-        a = torch.exp(-torch.exp(self.A_log)[None, :] * dt)    # [B,H]
-        h = (h * a[:, :, None, None]
-             + (dt[:, :, None] * xs)[..., None] * Bh[:, :, None, :])
-        y = torch.einsum("bhn,bhpn->bhp", Ch, h)
-        y = y + xs * self.D[None, :, None]
+        dt = dt.reshape(Bsz, self.n_heads)
+        if isinstance(h, DTensor):
+            y, h = self._recur_sharded(
+                xs.reshape(Bsz, self.n_heads, self.cfg.head_dim),
+                Bv.reshape(Bsz, -1), Cv.reshape(Bsz, -1), dt, h)
+        else:
+            y, h = self._recur(xs, Bv, Cv, dt, h, self.A_log, self.D,
+                               self.dt_bias)
         # cast back BEFORE the gate norm, as the reference's step does
         y = y.reshape(Bsz, 1, self.d_inner).to(x.dtype)
         y = self.out_proj(self.gate_norm(y * F.silu(z)))
         return y, h, new_tail
+
+    def _recur(self, xs, Bv, Cv, dt, h, A_log, D, dt_bias):
+        """The recurrence on plain tensors of H' heads: xs [B, ..., H'*P],
+        Bv/Cv [B, G'*N], dt [B,H'] (before softplus), h [B,H',P,N]."""
+        c = self.cfg
+        Bsz, H = dt.shape
+        P, N = c.head_dim, c.d_state
+        G = Bv.shape[-1] // N
+        xs = xs.reshape(Bsz, H, P).float()
+        R = H // G
+        Bh = Bv.reshape(Bsz, G, N).float().repeat_interleave(R, dim=1)
+        Ch = Cv.reshape(Bsz, G, N).float().repeat_interleave(R, dim=1)
+        dt = F.softplus(dt.float() + dt_bias)
+        a = torch.exp(-torch.exp(A_log)[None, :] * dt)         # [B,H]
+        h = (h * a[:, :, None, None]
+             + (dt[:, :, None] * xs)[..., None] * Bh[:, :, None, :])
+        y = torch.einsum("bhn,bhpn->bhp", Ch, h)
+        return y + xs * D[None, :, None], h
+
+    def _recur_sharded(self, xs, Bv, Cv, dt, h: DTensor):
+        """``_recur`` on each rank's batch rows and heads (h's
+        placements), B and C whole (one group); serving only."""
+        if self.cfg.n_groups > 1 and any(p.is_shard(1)
+                                         for p in h.placements):
+            raise NotImplementedError("B/C groups with the heads sharded")
+        mesh = h.device_mesh
+        Bsz, H = dt.shape
+        hpl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+               for p in h.placements]
+        bpl = [p if p.is_shard(0) else Replicate() for p in hpl]
+        wpl = [Shard(0) if p.is_shard(1) else Replicate() for p in hpl]
+
+        def local(t, pl):
+            return to_placements(t, mesh, pl).to_local()
+        y, h = self._recur(local(xs, hpl), local(Bv, bpl), local(Cv, bpl),
+                           local(dt, hpl), local(h, hpl),
+                           *(local(w, wpl) for w in (self.A_log, self.D,
+                                                     self.dt_bias)))
+        P = self.cfg.head_dim
+        shape = (Bsz, H, P)
+        hshape = (Bsz, H, P, self.cfg.d_state)
+        return (DTensor.from_local(y.contiguous(), mesh, hpl,
+                                   shape=torch.Size(shape),
+                                   stride=contiguous_stride(shape)),
+                DTensor.from_local(h.contiguous(), mesh, hpl,
+                                   shape=torch.Size(hshape),
+                                   stride=contiguous_stride(hshape)))

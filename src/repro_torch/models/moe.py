@@ -32,9 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import MoEConfig
+from repro_torch.sharding.plan import (contiguous_stride, local_offset,
+                                       to_placements)
 
 
 def capacity_for(cfg: MoEConfig, S: int) -> int:
@@ -90,6 +93,8 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig,
     ``with_aux`` (the serving path drops the losses, as XLA drops the
     reference's unused ones).
     """
+    if isinstance(x, DTensor):
+        return moe_sharded(params, x, cfg, capacity, with_aux)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     r = route(params["w_router"], x, cfg, capacity)
@@ -121,6 +126,94 @@ def moe(params: dict, x: torch.Tensor, cfg: MoEConfig,
     z = cfg.router_z_loss * torch.logsumexp(r.logits, dim=-1).square().mean()
     return y, {"moe_aux": aux, "moe_z": z,
                "moe_drop_frac": 1.0 - r.keep.float().mean()}
+
+
+def moe_sharded(params: dict, x: DTensor, cfg: MoEConfig,
+                capacity: Optional[int] = None, with_aux: bool = True
+                ) -> tuple[torch.Tensor, dict]:
+    """``moe`` under a sharding plan: expert parallelism over the mesh
+    dims that split the experts, each rank computing on its own tokens.
+
+    Routing is per sequence, so each rank routes its batch rows (whole
+    sequences: a sequence-sharded x is gathered), with the router
+    gathered whole.  Each rank runs the experts it holds (gathered over
+    the FSDP dims) on those rows, and its combine is a partial sum over
+    the expert-sharding mesh dims, which the caller's placement
+    reduces.  Where the batch is split over an expert-sharding dim the
+    tokens are gathered over it first.  Gradients: the router's
+    computation is the same on every expert shard, so the gate values'
+    gradient (a partial sum over the experts each rank holds) is summed
+    over the expert dims before it reaches the router; the tokens'
+    gradient is the router's (whole) plus the experts' (partial).  The
+    losses are means over all rows: sums of each rank's rows, summed
+    over the batch-sharding dims.
+    """
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    wg = params["w_gate"]
+    edims = [i for i, p in enumerate(wg.placements) if p.is_shard(0)]
+    rep = Replicate()
+    xpl = [p if p.is_shard(0) and i not in edims else rep
+           for i, p in enumerate(x.placements)]
+    bdims = [i for i, p in enumerate(xpl) if p.is_shard(0)]
+
+    def partial_on(dims, pl):
+        return [Partial() if i in dims else p for i, p in enumerate(pl)]
+
+    x = to_placements(x, mesh, xpl)
+    x_router = x.to_local()
+    x_experts = x.to_local(grad_placements=partial_on(edims, xpl))
+    whole = [rep] * mesh.ndim
+    w_router = to_placements(params["w_router"], mesh, whole).to_local(
+        grad_placements=partial_on(bdims, whole))
+    r = route(w_router, x_router, cfg, capacity)
+    C = r.capacity
+    # the gate values' gradient from this rank's experts, summed over
+    # the expert dims on the way back to the (replicated) router
+    gate_vals = DTensor.from_local(r.gate_vals, mesh, whole).to_local(
+        grad_placements=partial_on(edims, whole))
+
+    epl = [Shard(0) if i in edims else rep for i in range(mesh.ndim)]
+    egrad = partial_on(bdims, epl)
+    w = {k: to_placements(params[k], mesh, epl).to_local(
+            grad_placements=egrad) for k in ("w_gate", "w_up", "w_down")}
+    lo, n = local_offset(wg, 0), w["w_gate"].shape[0]
+    b = x_router.shape[0]
+    dt = x_router.dtype
+    assign = F.one_hot(r.gate_idx, E).to(dt)[..., lo:lo + n]   # [b,S,K,El]
+    pos_oh = (r.pos[..., None] == torch.arange(C, device=x_router.device)
+              ).to(dt)
+    disp = torch.einsum("bske,bskc->bsec", assign,
+                        pos_oh * r.keep[..., None].to(dt))
+    comb = torch.einsum("bske,bskc->bsec", assign,
+                        pos_oh * gate_vals.to(dt)[..., None])
+    xe = torch.einsum("bsec,bsd->ebcd", disp, x_experts).reshape(n, b * C,
+                                                                 d)
+    g = torch.bmm(xe, w["w_gate"])
+    u = torch.bmm(xe, w["w_up"])
+    ye = torch.bmm(F.silu(g) * u, w["w_down"])
+    y = torch.einsum("bsec,ebcd->bsd", comb, ye.reshape(n, b, C, d))
+    y = DTensor.from_local(y.contiguous(), mesh, partial_on(edims, xpl),
+                           shape=x.shape,
+                           stride=contiguous_stride(x.shape))
+    if not with_aux:
+        return y, {}
+
+    def row_mean(t: torch.Tensor) -> DTensor:
+        """The mean over all B*S rows of a per-row quantity summed over
+        this rank's rows."""
+        return DTensor.from_local(t, mesh, partial_on(bdims, whole),
+                                  shape=t.shape,
+                                  stride=contiguous_stride(t.shape)) / (B * S)
+
+    me = row_mean(r.probs.sum(dim=(0, 1)))
+    fe = row_mean(F.one_hot(r.gate_idx, E).float().sum(dim=(0, 1, 2)))
+    aux = cfg.aux_loss * E * torch.sum(me * fe)
+    z = cfg.router_z_loss * row_mean(
+        torch.logsumexp(r.logits, dim=-1).square().sum())
+    drop = 1.0 - row_mean(r.keep.float().sum() / K)
+    return y, {"moe_aux": aux, "moe_z": z, "moe_drop_frac": drop}
 
 
 class MoE(nn.Module):

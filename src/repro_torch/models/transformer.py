@@ -35,6 +35,16 @@ Entry points, by the reference's names: ``init_params`` is the
 mask for continuous batching).  These run without grad; training goes
 through ``logits_and_aux`` (``forward``'s body, under per-layer remat)
 and ``loss_fn``.
+
+Under a sharding plan (``repro_torch.sharding.plan.use_plan``) the
+same code runs on DTensors: ``shard(...)`` calls at the reference's
+sites place the activations, the entry points run in ``plan_scope()``
+(DTensor's implicit replication: the plain tensors they make --
+positions, masks, ``arange`` indices, the aux-loss zero -- count as
+replicated), the serving cache is placed by ``CACHE_AXES``, the
+embedding and the loss are vocab-parallel, and attention, the SSD scan
+and the MoE experts run on each rank's local shard.  Without a plan
+nothing of this runs: ``shard`` returns its input.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -52,6 +63,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import plan as SP
+from repro_torch.sharding.plan import shard
 
 
 def n_shared_apps(cfg: ModelConfig) -> int:
@@ -100,15 +113,31 @@ class DecoderBlock(nn.Module):
         and its MoE losses (empty for an MLP block or without
         ``with_aux``).
         """
-        h = self.ln1(x)
+        # under sequence parallelism the projections take the whole
+        # sequence (the Megatron-SP gather, made explicit: a linear layer
+        # over a batch- and sequence-split input flattens to a strided
+        # shard, whose sharding propagation takes minutes on a 3-D mesh)
+        h = shard(self.ln1(x), "batch", None, "embed",
+                  grad_placed=False)
         q, k, v = self.attn.proj(h)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
+        q = shard(q, "batch", "seq", "heads", "head_dim")
         if kv_cache is None:
+            # no "seq" on k and v: under sequence parallelism each shard
+            # attends over the whole sequence
+            k = shard(k, "batch", None, None, "head_dim")
+            v = shard(v, "batch", None, None, "head_dim")
             if self.attn_impl == "kernel":
                 o = flash_ops.flash_attention(q, k, v, causal=self.causal)
             else:
-                o = L.dense_attention(q, k, v, causal=self.causal)
+                H = self.attn.n_heads
+                ke = shard(L._expand_kv(k, H), "batch", "seq", "heads",
+                           "head_dim")
+                ve = shard(L._expand_kv(v, H), "batch", "seq", "heads",
+                           "head_dim")
+                o = L.dense_attention(q, ke, ve, causal=self.causal)
+            o = shard(o, "batch", "seq", "heads", "head_dim")
         else:
             # deferred commit: attend over the cache plus the in-flight
             # token's (k, v); the caller writes them into the cache after
@@ -122,13 +151,18 @@ class DecoderBlock(nn.Module):
                 o = L.decode_attention(q, k_cache, v_cache, cache_pos,
                                        k_scale=k_scale, v_scale=v_scale,
                                        extra_kv=(k, v))
-        x = x + self.attn.out(o)
-        h = self.ln2(x)
+        # each residual branch is placed as the stream before the add:
+        # a partial sum over heads (or ff, or experts) is reduce-scattered
+        # onto the sequence shards, and its gradient gathered back (the
+        # Megatron-SP pair), so no linear layer sees a strided gradient
+        x = x + shard(self.attn.out(o), "batch", "seq", "embed")
+        h = shard(self.ln2(x), "batch", None, "embed",
+                  grad_placed=False)
         if self.is_moe:
             y, aux = self.moe(h, with_aux)
         else:
             y, aux = self.mlp(h), {}
-        return x + y, (k, v), aux
+        return x + shard(y, "batch", "seq", "embed"), (k, v), aux
 
 
 class MambaLayer(nn.Module):
@@ -146,13 +180,82 @@ class MambaLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, impl: str):
         """Full sequence -> (x_out, decode state)."""
-        y, state = self.mamba(self.ln(x), impl)
-        return x + y.to(x.dtype), state
+        y, state = self.mamba(shard(self.ln(x), "batch", None, "embed",
+                                    grad_placed=False), impl)
+        return x + shard(y.to(x.dtype), "batch", "seq", "embed"), state
 
     def step(self, x: torch.Tensor, h: torch.Tensor, tail: torch.Tensor):
         """One token -> (x_out, new ssm state, new conv tail)."""
         y, h, tail = self.mamba.step(self.ln(x), h, tail)
         return x + y.to(x.dtype), h, tail
+
+
+# logical axes of each cache entry (the reference's _cache_shardings)
+CACHE_AXES = {
+    "pos": ("batch",),
+    "k": (None, "batch", "kv_seq", None, None),
+    "v": (None, "batch", "kv_seq", None, None),
+    "k_scale": (None, "batch", "kv_seq", None),
+    "v_scale": (None, "batch", "kv_seq", None),
+    "ssm_h": (None, "batch", "heads", None, None),
+    "conv_tail": (None, "batch", None, None),
+}
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+               device) -> dict:
+    """An empty serving cache; under a plan each entry is a DTensor
+    placed by ``CACHE_AXES``, each rank allocating its own shard (on
+    ``device="meta"``: shapes only)."""
+    c = cfg
+    dt = getattr(torch, c.dtype)
+
+    def zeros(key, shape, dtype):
+        return SP.zeros(shape, *CACHE_AXES[key], dtype=dtype, device=device)
+
+    cache = {"pos": zeros("pos", (batch_size,), torch.int32)}
+    if c.family in ("ssm", "hybrid"):
+        s = c.ssm
+        d_inner, H = M.ssm_dims(c.d_model, s)
+        conv_ch = d_inner + 2 * s.n_groups * s.d_state
+        cache["ssm_h"] = zeros("ssm_h", (c.n_layers, batch_size, H,
+                                         s.head_dim, s.d_state),
+                               torch.float32)
+        cache["conv_tail"] = zeros("conv_tail", (c.n_layers, batch_size,
+                                                 s.conv_width - 1, conv_ch),
+                                   dt)
+    if c.family != "ssm":
+        nl = n_shared_apps(c) if c.family == "hybrid" else c.n_layers
+        shape = (nl, batch_size, max_len, c.n_kv_heads, c.head_dim)
+        kv_dt = torch.int8 if c.int8_cache else dt
+        cache["k"] = zeros("k", shape, kv_dt)
+        cache["v"] = zeros("v", shape, kv_dt)
+        if c.int8_cache:
+            for key in ("k_scale", "v_scale"):
+                cache[key] = zeros(key, shape[:-1], torch.float32)
+    return cache
+
+
+def _layer_local(arr: DTensor, i: int, val: torch.Tensor,
+                 positions: bool = False) -> tuple:
+    """Layer ``i`` of a sharded cache entry and ``val`` placed as that
+    layer is (with ``positions``, whole over its positions dim), both as
+    this rank's local tensors."""
+    if any(p.is_shard(0) for p in arr.placements):
+        raise ValueError("a cache's layer dim is never sharded")
+    pl = [Replicate() if positions and p.is_shard(2) else
+          Shard(p.dim - 1) if p.is_shard() else p for p in arr.placements]
+    return (arr.to_local()[i],
+            SP.to_placements(val, arr.device_mesh, pl).to_local())
+
+
+def _set_layer(arr: torch.Tensor, i: int, val: torch.Tensor) -> None:
+    """``arr[i] = val`` (under a plan, each rank its own shard)."""
+    if isinstance(arr, DTensor):
+        dst, src = _layer_local(arr, i, val)
+        dst.copy_(src)
+    else:
+        arr[i] = val
 
 
 def _keep_inactive(dst: torch.Tensor, new: torch.Tensor,
@@ -165,6 +268,18 @@ def _keep_inactive(dst: torch.Tensor, new: torch.Tensor,
     else:
         sel = active.reshape((-1,) + (1,) * (dst.dim() - 1))
         dst.copy_(torch.where(sel, new.to(dst.dtype), dst))
+
+
+def _keep_inactive_layer(arr: torch.Tensor, i: int, new: torch.Tensor,
+                         active: Optional[torch.Tensor]) -> None:
+    """``_keep_inactive`` into layer ``i`` of a cache entry."""
+    if isinstance(arr, DTensor):
+        if active is not None:
+            new = torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                              new.to(arr.dtype), arr[i])
+        _set_layer(arr, i, new)
+    else:
+        _keep_inactive(arr[i], new, active)
 
 
 def _kv_keys(cache: dict) -> tuple:
@@ -191,18 +306,35 @@ def _store_layer(cache: dict, i: int, k: torch.Tensor, v: torch.Tensor
     application) ``i`` at positions 0..S-1."""
     S = k.shape[1]
     for key, val in zip(_kv_keys(cache), _kv_entries(cache, k, v)):
-        cache[key][i, :, :S] = val
+        arr = cache[key]
+        if isinstance(arr, DTensor):
+            # this rank's slice of the positions, from the whole sequence
+            dst, src = _layer_local(arr, i, val, positions=True)
+            off = SP.local_offset(arr, 2)
+            n = max(0, min(S - off, dst.shape[1]))
+            dst[:, :n] = src[:, off:off + n]
+        else:
+            arr[i, :, :S] = val
 
 
 def _commit_layer(cache: dict, i: int, k: torch.Tensor, v: torch.Tensor,
                   pos: torch.Tensor) -> None:
     """Commit layer (or application) ``i``'s new entries at ``pos``."""
     for key, val in zip(_kv_keys(cache), _kv_entries(cache, k, v)):
-        _commit_kv(cache[key][i], val, pos)
+        arr = cache[key]
+        if isinstance(arr, DTensor):
+            dst, src = _layer_local(arr, i, val, positions=True)
+            p = SP.to_placements(pos, arr.device_mesh, [
+                Shard(0) if q.is_shard(1) else Replicate()
+                for q in arr.placements]).to_local()
+            _commit_kv(dst, src, p, SP.local_offset(arr, 2), arr.shape[2])
+        else:
+            _commit_kv(arr[i], val, pos)
 
 
 def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
-               pos: torch.Tensor) -> None:
+               pos: torch.Tensor, offset: int = 0,
+               smax: Optional[int] = None) -> None:
     """Write one layer's new entries into its cache at per-sequence
     ``pos``, in place.
 
@@ -210,11 +342,24 @@ def _commit_kv(cache_arr: torch.Tensor, new_vals: torch.Tensor,
     cache's scales, [B,Smax,K]); new_vals: [B,1,...]; pos: [B].  A
     position past the end writes the last slot, as the reference's
     ``dynamic_update_slice`` clamps its start index.
+
+    A rank's shard of a cache sharded over positions: ``cache_arr``
+    holds positions ``offset..`` of ``smax``; a row whose position lies
+    elsewhere keeps its value (fixed shapes, no host synchronisation).
     """
-    B, Smax = cache_arr.shape[:2]
-    idx = pos.long().clamp(0, Smax - 1)
+    B, Sl = cache_arr.shape[:2]
+    smax = Sl if smax is None else smax
+    idx = pos.long().clamp(0, smax - 1) - offset
     rows = torch.arange(B, device=cache_arr.device)
-    cache_arr[rows, idx] = new_vals[:, 0].to(cache_arr.dtype)
+    new = new_vals[:, 0].to(cache_arr.dtype)
+    if offset == 0 and Sl == smax:
+        cache_arr[rows, idx] = new
+        return
+    inside = (idx >= 0) & (idx < Sl)
+    idx = idx.clamp(0, max(Sl - 1, 0))
+    if Sl:
+        keep = inside.reshape((-1,) + (1,) * (new.dim() - 1))
+        cache_arr[rows, idx] = torch.where(keep, new, cache_arr[rows, idx])
 
 
 class Transformer(nn.Module):
@@ -236,8 +381,8 @@ class Transformer(nn.Module):
         self.mamba = cfg.family in ("ssm", "hybrid")
         # audio frames arrive embedded: no table
         self.embed = (None if cfg.family == "audio" else
-                      nn.utils.skip_init(nn.Embedding, V, d, device=dev,
-                                         dtype=self.dtype))
+                      L.uninitialized(nn.Embedding(V, d, device="meta",
+                                                   dtype=self.dtype), dev))
         layer = MambaLayer if self.mamba else DecoderBlock
         self.layers = nn.ModuleList(layer(cfg, dev, self.dtype)
                                     for _ in range(cfg.n_layers))
@@ -307,8 +452,8 @@ class Transformer(nn.Module):
         0..P-1."""
         c = self.cfg
         if c.family == "audio":
-            return tokens.to(self.dtype)
-        x = self.embed(tokens)
+            return shard(tokens.to(self.dtype), "batch", "seq", "embed")
+        x = L.embed_lookup(self.embed.weight, tokens)
         if c.embed_scale:
             x = x * torch.tensor(math.sqrt(c.d_model), dtype=x.dtype)
         if vision_embeds is not None:
@@ -319,14 +464,20 @@ class Transformer(nn.Module):
             if P > x.shape[1]:
                 raise ValueError(f"{P} vision positions do not fit "
                                  f"{x.shape[1]} tokens")
-            x[:, :P] = vision_embeds.to(x.dtype)
-        return x
+            # under a plan the prefix is written with the sequence whole
+            # (the vocab-parallel lookup's partial sum reduced first)
+            x = shard(x, "batch", None, "embed", grad_placed=False)
+            x[:, :P] = shard(vision_embeds.to(x.dtype), "batch", None,
+                             "embed", grad_placed=False)
+        return shard(x, "batch", "seq", "embed")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
+        x = shard(self.final_norm(x), "batch", None, "embed",
+                  grad_placed=False)
         head = (self.embed.weight if self.lm_head is None
                 else self.lm_head.weight)
-        return torch.nn.functional.linear(x, head)
+        return shard(torch.nn.functional.linear(x, head), "batch", "seq",
+                     "vocab")
 
     def _rope(self, positions: torch.Tensor):
         c = self.cfg
@@ -351,6 +502,7 @@ class Transformer(nn.Module):
         logits, aux = self.logits_and_aux(tokens, vision_embeds, return_aux)
         return (logits, aux) if return_aux else logits
 
+    @SP.scoped
     def logits_and_aux(self, tokens: torch.Tensor,
                        vision_embeds: Optional[torch.Tensor] = None,
                        with_aux: bool = True):
@@ -367,9 +519,12 @@ class Transformer(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat == "block" and torch.is_grad_enabled()
 
+        plan = SP.current_plan()
+
         def run(fn, *args):
             if remat:
-                return checkpoint(fn, *args, use_reentrant=False)
+                return checkpoint(SP.with_plan(plan, fn), *args,
+                                  use_reentrant=False)
             return fn(*args)
 
         def block(blk, xx):
@@ -395,35 +550,12 @@ class Transformer(nn.Module):
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        """An empty serving cache for ``batch_size`` sequences."""
+        """An empty serving cache for ``batch_size`` sequences (under a
+        plan, placed by ``CACHE_AXES``)."""
         self._need_decode()
-        c = self.cfg
-        dt = self.dtype
-        dev = self.device
-        cache = {"pos": torch.zeros(batch_size, dtype=torch.int32,
-                                    device=dev)}
-        if self.mamba:
-            s = c.ssm
-            d_inner, H = M.ssm_dims(c.d_model, s)
-            conv_ch = d_inner + 2 * s.n_groups * s.d_state
-            cache["ssm_h"] = torch.zeros(
-                c.n_layers, batch_size, H, s.head_dim, s.d_state,
-                dtype=torch.float32, device=dev)
-            cache["conv_tail"] = torch.zeros(
-                c.n_layers, batch_size, s.conv_width - 1, conv_ch, dtype=dt,
-                device=dev)
-        if c.family != "ssm":
-            nl = n_shared_apps(c) if c.family == "hybrid" else c.n_layers
-            shape = (nl, batch_size, max_len, c.n_kv_heads, c.head_dim)
-            kv_dt = torch.int8 if c.int8_cache else dt
-            cache["k"] = torch.zeros(shape, dtype=kv_dt, device=dev)
-            cache["v"] = torch.zeros(shape, dtype=kv_dt, device=dev)
-            if c.int8_cache:
-                for key in ("k_scale", "v_scale"):
-                    cache[key] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                             device=dev)
-        return cache
+        return init_cache(self.cfg, batch_size, max_len, device=self.device)
 
+    @SP.scoped
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,
                 vision_embeds: Optional[torch.Tensor] = None):
@@ -444,13 +576,14 @@ class Transformer(nn.Module):
         for first, end, app in self._segments():
             for i in range(first, end):
                 x, st = self.layers[i](x, self._ssd_impl)
-                cache["ssm_h"][i] = st["h"]
-                cache["conv_tail"][i] = st["conv_tail"]
+                _set_layer(cache["ssm_h"], i, st["h"])
+                _set_layer(cache["conv_tail"], i, st["conv_tail"])
             if app is not None:
                 x, (k, v), _ = self.shared(x, cos, sin)
                 _store_layer(cache, app, k, v)
         return cache, self._logits(x[:, -1:, :])
 
+    @SP.scoped
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,
                     active: Optional[torch.Tensor] = None):
@@ -485,8 +618,8 @@ class Transformer(nn.Module):
                 for i in range(first, end):
                     x, h, tail = self.layers[i].step(
                         x, cache["ssm_h"][i], cache["conv_tail"][i])
-                    _keep_inactive(cache["ssm_h"][i], h, active)
-                    _keep_inactive(cache["conv_tail"][i], tail, active)
+                    _keep_inactive_layer(cache["ssm_h"], i, h, active)
+                    _keep_inactive_layer(cache["conv_tail"], i, tail, active)
                 if app is not None:
                     x, (k, v), _ = self.shared(
                         x, cos, sin, kv_cache=(cache["k"][app],
@@ -500,6 +633,50 @@ class Transformer(nn.Module):
         return cache, self._logits(x)
 
 
+NEG_BIG = -3.0e38          # below any float32 logit: an empty slice's max
+
+
+def _vocab_parallel_terms(logits: DTensor, labels: torch.Tensor) -> tuple:
+    """``logsumexp`` and the gold logit of vocab-sharded logits, without
+    gathering the vocabulary: (logz, gold, labels), DTensors placed as
+    the logits with the vocab dim reduced.
+
+    Each rank works on its slice of the vocabulary: its maximum (a MAX
+    all-reduce gives the row's), its sum of exponentials past that
+    maximum (summed as a ``Partial``), and the gold logit of the labels
+    that fall in its slice (0 elsewhere; summed as a ``Partial``).
+    DTensor's own reductions over a sharded dim gather the whole
+    vocabulary, and ``gather`` on the DTensor would read the labels as
+    indices into the local slice.
+    """
+    mesh, pl = logits.device_mesh, logits.placements
+    vd = logits.dim() - 1
+    red = [Replicate() if p.is_shard(vd) else p for p in pl]
+    part = [Partial() if p.is_shard(vd) else p for p in pl]
+    labels = SP.to_placements(labels, mesh, red)
+    shape, stride = labels.shape, labels.stride()
+
+    def placed(t, placements):
+        return DTensor.from_local(t, mesh, placements, shape=shape,
+                                  stride=stride)
+
+    local = logits.to_local().float()
+    m = local.detach().amax(dim=-1) if local.shape[-1] else \
+        local.new_full(local.shape[:-1], NEG_BIG)
+    m = placed(m, [Partial("max") if p.is_shard(vd) else p for p in pl]
+               ).redistribute(mesh, red).to_local()
+    e = torch.exp(local - m[..., None]).sum(dim=-1)
+    logz = placed(e, part).log() + placed(m, red)
+    idx, inside = SP.local_index(labels.to_local().clamp_min(0),
+                                 local.shape[-1], SP.local_offset(logits, vd))
+    if local.shape[-1]:
+        g = local.gather(-1, idx[..., None])[..., 0] * inside
+    else:                               # an empty shard of an uneven vocab
+        g = local.new_zeros(idx.shape) + local.sum()
+    return logz, placed(g, part), labels
+
+
+@SP.scoped
 def loss_fn(model: Transformer, batch: dict):
     """Cross-entropy LM loss; labels == -1 are masked (prefix/pad).
 
@@ -514,11 +691,14 @@ def loss_fn(model: Transformer, batch: dict):
     ve = batch.get("vision_embeds") if c.family == "vlm" else None
     logits, aux = model.logits_and_aux(inp, ve)
     labels = batch["labels"]
+    if isinstance(logits, DTensor):
+        logz, gold, labels = _vocab_parallel_terms(logits, labels)
+    else:
+        lbl = labels.clamp_min(0).long()
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lbl[..., None])[..., 0]
     mask = (labels >= 0).float()
-    lbl = labels.clamp_min(0).long()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lbl[..., None])[..., 0]
     nll = (logz - gold) * mask
     loss = nll.sum() / mask.sum().clamp_min(1.0)
     return loss + aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}

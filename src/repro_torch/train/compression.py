@@ -1,7 +1,6 @@
 """Gradient compression: int8 block-scaled quantization with error feedback.
 
-The port of ``repro.train.compression`` (one process; the cross-pod
-``compressed_psum`` waits for the sharded port).  Mechanics
+The port of ``repro.train.compression``.  Mechanics
 (1-bit-Adam-family error feedback):
 
   e_t  = g_t + e_{t-1}         (carry the residual)
@@ -11,12 +10,19 @@ The port of ``repro.train.compression`` (one process; the cross-pod
 The blocks run over each reference leaf flattened in the reference's
 layout (``repro_torch.train.leaves``: stacked layers, weights ``[in,
 out]``), and ``ef`` is kept per reference leaf in that layout, so the
-blocks, the scales and the residuals are the reference's.
+blocks, the scales and the residuals are the reference's.  In a
+sharded state ``ef`` takes its leaf's placements, and a sharded leaf's
+blocks are formed on the leaf gathered whole (they cross shard
+boundaries): one all-gather of each leaf a step, and a float32 copy of
+the whole leaf on every rank meanwhile.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.sharding.plan import to_placements, zeros_like_placed
 from repro_torch.train import leaves as LV
 
 BLOCK = 256
@@ -60,8 +66,10 @@ def init_error_feedback(model) -> dict:
     out = {}
     for leaf in LV.param_leaves(model.cfg):
         p = params[leaf.names[0]]
-        out[leaf.key] = torch.zeros(LV.ref_shape(leaf, p.shape),
-                                    dtype=torch.float32, device=p.device)
+        pl = (LV.ref_placements(leaf, p.placements, p.dim())
+              if isinstance(p, DTensor) else None)
+        out[leaf.key] = zeros_like_placed(LV.ref_shape(leaf, p.shape), p,
+                                          pl)
     return out
 
 
@@ -77,8 +85,42 @@ def apply_error_feedback(grads: dict, state: dict):
     for leaf in LV.param_leaves(model.cfg):
         tot = LV.to_ref(leaf, [grads[n] for n in leaf.names]).float()
         tot = tot + ef[leaf.key]
-        qg = roundtrip(tot)
+        if isinstance(tot, DTensor):
+            # the blocks run over the whole flattened leaf, across shard
+            # boundaries: gathered, quantized alike on every rank, and
+            # each rank keeps its chunk
+            qg = to_placements(roundtrip(tot.full_tensor()),
+                               tot.device_mesh, tot.placements)
+        else:
+            qg = roundtrip(tot)
         ef[leaf.key] = tot - qg
         for name, piece in zip(leaf.names, LV.from_ref(leaf, qg)):
             out[name] = piece.contiguous()
     return out, state
+
+
+# ---------------------------------------------------------------------------
+# Cross-pod compressed reduction
+# ---------------------------------------------------------------------------
+
+
+def compressed_psum(x: torch.Tensor, mesh, mesh_dim) -> torch.Tensor:
+    """All-reduce each rank's ``x`` over one dim of ``mesh`` (a name or
+    an index) with int8 block quantization: the reference's
+    ``compressed_psum`` under ``shard_map``.
+
+    Each rank quantizes locally; a MAX all-reduce gives the shared
+    per-block scales, each rank re-expresses its payload in them, and
+    the integer payloads are summed in int32 (as the reference's
+    ``psum`` of its rescaled int32 payload; no overflow up to 2^24
+    ranks), then rescaled.  An approximation of the sum of the
+    dequantized values; neither train step calls it.
+    """
+    group = mesh.get_group(mesh_dim)
+    q, s = quantize(x)
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    total = torch.round(q.float() * (s / s_max)).to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    flat = (total.float() * s_max).reshape(-1)
+    return flat[:x.numel()].reshape(x.shape).to(x.dtype)

@@ -1,14 +1,59 @@
-"""Straggler detection for the training loop.
+"""Elastic scaling and fault tolerance for the training loop.
 
-The port of ``repro.train.elastic``'s ``StepWatchdog``, which is host
-threading.  ``survivors_mesh`` and ``remesh_state`` move a state between
-device meshes and wait for the sharded port.
+The port of ``repro.train.elastic`` on ``DeviceMesh``:
+
+* ``survivors_mesh``  -- the largest mesh of surviving ranks after a
+                         failure: every ``data`` row that holds a failed
+                         rank is dropped, the model axis stays whole (the
+                         batch shrinks);
+* ``remesh_state``    -- move a train state onto a new plan (each leaf
+                         gathered on the old mesh, each rank of the new
+                         one keeping its chunk); with
+                         ``checkpoint.restore(..., placements=)`` this is
+                         the node-failure recovery path;
+* ``StepWatchdog``    -- straggler detection: alarm when a step exceeds
+                         ``timeout_s`` (the action, re-dispatching the
+                         step, is the caller's callback).
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.sharding.plan import Plan
+from repro_torch.train.step import place_state
+
+
+def survivors_mesh(mesh: DeviceMesh, failed_ranks: Sequence[int],
+                   data_axis: str = "data") -> DeviceMesh:
+    """Largest mesh of surviving ranks with the model axis intact.
+
+    Failure granularity is a full ``data`` row: any row holding a failed
+    rank is dropped.  Every rank of the world calls this (building a
+    ``DeviceMesh`` creates its process groups collectively); on a rank
+    outside the new mesh, DTensor operations on it do nothing."""
+    ranks = mesh.mesh
+    axis = mesh.mesh_dim_names.index(data_axis)
+    failed = set(int(r) for r in failed_ranks)
+    keep = [i for i in range(ranks.shape[axis])
+            if not set(ranks.select(axis, i).flatten().tolist()) & failed]
+    if not keep:
+        raise RuntimeError("no surviving data rows")
+    new = ranks.index_select(axis, torch.tensor(keep))
+    return DeviceMesh(mesh.device_type, new,
+                      mesh_dim_names=mesh.mesh_dim_names)
+
+
+def remesh_state(state: dict, old_plan: Plan, new_plan: Plan) -> dict:
+    """Move a train state's params and optimizer state from
+    ``old_plan``'s mesh onto ``new_plan``'s, in place (every rank of the
+    old mesh takes part in the gathers).  Returns the state."""
+    del old_plan          # the leaves carry their own mesh and placements
+    return place_state(state, new_plan)
 
 
 class StepWatchdog:

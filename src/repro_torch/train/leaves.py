@@ -20,6 +20,7 @@ import dataclasses
 from typing import Sequence
 
 import torch
+from torch.distributed.tensor import Shard
 
 # names of the dense block's weights: (reference key, port module)
 _ATTN = (("wq", "wq"), ("wk", "wk"), ("wv", "wv"), ("wo", "wo"))
@@ -116,6 +117,24 @@ def ref_shape(leaf: Leaf, shape: Sequence[int]) -> tuple:
     if leaf.transposed:
         s = s[::-1]
     return ((len(leaf.names),) if leaf.stacked else ()) + s
+
+
+def ref_placements(leaf: Leaf, placements: Sequence, port_ndim: int
+                   ) -> tuple:
+    """DTensor placements of a port parameter of ``leaf`` (``port_ndim``
+    dims) as the placements of the reference's leaf: a sharded dim is
+    mirrored where the port transposes, and moved past the stacked
+    layer dim."""
+    out = []
+    for pl in placements:
+        if pl.is_shard():
+            d = pl.dim % port_ndim
+            if leaf.transposed:
+                d = port_ndim - 1 - d
+            out.append(Shard(d + 1 if leaf.stacked else d))
+        else:
+            out.append(pl)
+    return tuple(out)
 
 
 def get_path(tree: dict, path: Sequence[str]):

@@ -25,6 +25,11 @@ The reference's arithmetic is kept, quirks included:
   are taken over the reference's leaves (``repro_torch.train.leaves``):
   a stacked ``[L, ...]`` leaf spans every layer, weights are ``[in,
   out]``, and a stacked norm scale ``[L, d]`` is factored.
+
+On a sharded model (DTensor parameters) AdamW's moments take their
+parameter's placements; Adafactor's statistics are replicated, as the
+reference's rules leave them, and its means over a sharded leaf are
+all-reduced by DTensor.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.plan import zeros_like_placed
 from repro_torch.train import leaves as LV
 
 
@@ -56,8 +62,10 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           warmup_steps: int = 100) -> Optimizer:
     def init(model) -> dict:
         def zeros():
-            return {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            # a sharded parameter's moments take its placements
+            return {n: torch.zeros_like(
+                        p, dtype=torch.float32,
+                        memory_format=torch.contiguous_format)
                     for n, p in model.named_parameters()}
         return {"m": zeros(), "v": zeros(), "count": 0}
 
@@ -104,13 +112,14 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
         for leaf in LV.param_leaves(model.cfg):
             p = params[leaf.names[0]]
             shape = LV.ref_shape(leaf, p.shape)
-            z = dict(dtype=torch.float32, device=p.device)
+            # replicated on a sharded model's mesh, as the reference's
+            # rules leave them
             if len(shape) >= 2:
-                f[leaf.key] = {"vr": torch.zeros(shape[:-1], **z),
-                               "vc": torch.zeros(shape[:-2] + shape[-1:],
-                                                 **z)}
+                f[leaf.key] = {"vr": zeros_like_placed(shape[:-1], p),
+                               "vc": zeros_like_placed(shape[:-2]
+                                                       + shape[-1:], p)}
             else:
-                f[leaf.key] = {"v": torch.zeros(shape, **z)}
+                f[leaf.key] = {"v": zeros_like_placed(shape, p)}
         return {"f": f, "count": 0}
 
     @torch.no_grad()

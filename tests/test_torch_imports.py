@@ -180,3 +180,52 @@ def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+SHARDING_MODULES = ("repro_torch.sharding.plan", "repro_torch.launch.mesh",
+                    "repro_torch.launch.dryrun", "repro_torch.launch.train",
+                    "repro_torch.configs.shapes", "repro_torch.train.elastic",
+                    "repro_torch.train.checkpoint")
+
+
+def test_the_sharded_modules_load_no_jax():
+    """The sharding plan, the meshes, the dry run and the elastic path
+    are port files the AST scan covers, and importing them (and tracing
+    a reduced dry-run cell on a fake world) loads no JAX."""
+    files = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES
+             if p.is_relative_to(ROOT / "src")}
+    for mod in SHARDING_MODULES:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SHARDING_MODULES)
+            + "import torch.distributed as dist\n"
+            "from torch.distributed.device_mesh import init_device_mesh\n"
+            "from torch.testing._internal.distributed.fake_pg import "
+            "FakeStore\n"
+            "from repro_torch import configs\n"
+            "from repro_torch.launch import dryrun\n"
+            "dist.init_process_group('fake', store=FakeStore(), rank=0,\n"
+            "                        world_size=4)\n"
+            "mesh = init_device_mesh('cpu', (2, 2),\n"
+            "                        mesh_dim_names=('data', 'model'))\n"
+            "cfg = configs.get_reduced('qwen2.5-3b')\n"
+            "specs = configs.input_specs(cfg, 'decode_32k', 4, 16)\n"
+            "dryrun._measure(cfg, 'decode_32k', mesh, 'cpu', specs)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sharded_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is valid")
+    from repro_torch.launch import dryrun, train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "qwen2.5-3b", "--shape", "train_4k"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--mesh", "pod"])
