@@ -2,7 +2,7 @@
 PY ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH),)
 
-.PHONY: test test-fast test-jax lint bench-smoke bench-predict \
+.PHONY: test test-fast test-jax lint lint-torch bench-smoke bench-predict \
   bench-fleet bench-elastic bench-chaos bench bench-json bench-gate \
   trace-demo
 
@@ -22,6 +22,12 @@ test-fast:
 # gated on the committed baseline (docs/ANALYSIS.md) — new findings fail
 lint:
 	$(PY) -m repro.analysis --baseline schedlint_baseline.json
+
+# the same lint over the PyTorch port (src/repro_torch), with its torch
+# hot-path pass, gated on the port's own baseline
+lint-torch:
+	$(PY) -m repro_torch.analysis --baseline \
+	  src/repro_torch/analysis/baseline.json
 
 # jax-backend agreement + edge suites, pinned to the CPU backend (what
 # CI runs across the python-version matrix)

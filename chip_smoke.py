@@ -111,9 +111,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts them);
    "dry run": ``python -m repro_torch.launch.dryrun`` on the card's host
    for qwen2.5-3b ``train_4k`` and ``decode_32k`` on pod16x16 and
-   qwen3-moe-30b-a3b ``prefill_32k`` on pod2x16x16 (fake process groups
+   qwen3-moe-30b-a3b ``prefill_32k`` on pod2x16x16, cut to 2 layers
+   (the blocked attention's kv blocks at 32k), the three at once (fake
+   process groups
    of 256 and 512 ranks, fake CUDA tensors): each record's per-device
    state and peak bytes, FLOPs, collectives by op and seconds;
+   "blocked attention" (``attn_impl="blocked"``, the reference's
+   default for training and the dry run): the function against the
+   plain dense attention and the flash_attention kernel at qwen2.5-3b's
+   full width, S = 2048 causal, in float32 and bfloat16 (max abs
+   difference within 2e-5 / 2e-2; ms of the three); full-width
+   qwen2.5-3b train steps (loss and gradients under per-layer
+   checkpointing): in float32 at 8 x 512 blocked against dense, the
+   loss to rel 1e-5 and each gradient to 1e-4 x its max |g|; ms a step
+   and peak memory of both in float32 and bfloat16, and their peaks in
+   bfloat16 at 1 x 4096;
 8. the group_pick kernel against its plain version on the card, exact
    integer equality over G in {1, 7, 1024}, CAP in {32, 33, 64, 100,
    256, 1024, 4096} (both variants, every register width) and kmax in
@@ -128,10 +140,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    port's own CPU run, and the port's host backends (``engine="tick"``
    and ``engine="vector"``) on the same spec, in every per-request field,
    the dispatch counts, the ETA log and the overload bypasses;
+   "traces": the same spec with every telemetry collector on, with
+   ``engine="torch"`` on the card and ``engine="vector"`` on the host:
+   canonical trace digests, ``by_rid`` of the first 16 rids,
+   ``FleetSeries.to_dict`` and ``summary()`` (apart from ``wall_s``)
+   equal; a hash run's trace beside the sfs-aware one written by
+   ``save_chrome_trace`` loads as JSON; ``HostProfile.format()`` printed;
 10. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
    load 0.8, faults + retries + shedding) on the card under sfs-aware and
-   hash: fingerprint and shed count equal the recorded rows of
-   ``benchmarks/baselines/BENCH_cluster.json``;
+   hash (one worker process each, at once): fingerprint and shed count
+   equal the recorded rows of ``benchmarks/baselines/BENCH_cluster.json``;
    "recorded rows": the port's ``engine="vector"`` and ``engine="tick"``
    (host code, in worker processes) on all eight ``elastic`` and
    ``chaos`` rows of that file (loads 0.6 and 0.8, sfs-aware and hash),
@@ -160,7 +178,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    once per stepped tick and 64 times per chunk;
 12. where the fleet's time goes: one short fleet run under
    torch.profiler (device operations per tick, busy share, group_pick's
-   share; reported only).
+   share; reported only);
+13. "examples": ``examples/serve_sfs_torch.py`` at full width on the
+   card (qwen2.5-3b, 40 requests, sfs against cfs): its schedule equals
+   the reference script's and every prefill and decode step launched
+   the attention kernels once a layer; the three host examples
+   (``quickstart_torch.py``, ``overload_demo_torch.py``,
+   ``cluster_demo_torch.py``), started in the background after phase 3,
+   exit 0; their result lines printed;
+14. "lint": ``python -m repro_torch.analysis`` with the port's baseline
+   (``src/repro_torch/analysis/baseline.json``), run in the background
+   beside the phases: no new finding; counts by rule printed.
 
 Each phase prints its wall time (``[time]``).  It then prints one JSON
 line describing the four kernels (launches summed over phases 5 and 10,
@@ -1586,10 +1614,16 @@ SHARDED_STEPS = 2
 # arithmetic), and AdamW's near-sign first update carries that into the
 # second step's weights
 SHARDED_RTOL = 1e-5
-# the dry run's cells on the card's host: (arch, shape, multi-pod)
-DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False),
-                ("qwen2.5-3b", "decode_32k", False),
-                ("qwen3-moe-30b-a3b", "prefill_32k", True))
+# the dry run's cells on the card's host: (arch, shape, multi-pod,
+# variant, config overrides): the blocked attention (the dry run's
+# default) runs 2,080 kv blocks a layer at 32k tokens, ~17 s of
+# fake-tensor operations a layer on the card's host, so qwen3-moe's
+# prefill cell keeps its shapes and plan at 2 of 48 layers, recorded as
+# the variant "layers2" (the smoke does not cover that cell at 48 layers)
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False, "baseline", ()),
+                ("qwen2.5-3b", "decode_32k", False, "baseline", ()),
+                ("qwen3-moe-30b-a3b", "prefill_32k", True, "layers2",
+                 ("n_layers=2",)))
 
 
 def train_steps(plan, cfg, batches, count_comms: bool) -> dict:
@@ -1686,34 +1720,53 @@ def run_sharded_training() -> None:
 def run_dry_run() -> None:
     """The port's dry run of DRYRUN_CELLS on a fake process group of 256
     or 512 ranks, on the card's host (fake CUDA tensors: nothing is
-    allocated), one process a cell; each record's per-device bytes,
-    FLOPs and collectives printed."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch, shape, multi_pod in DRYRUN_CELLS:
+    allocated), one process a cell, all at once with one OpenMP thread
+    each; each record's per-device bytes, FLOPs and collectives
+    printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--force", "--device", "cuda",
+         "--variant", variant]
+        + (["--multi-pod"] if multi_pod else [])
+        + [a for kv in sets for a in ("--set", kv)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=str(ROOT)) for arch, shape, multi_pod, variant, sets
+        in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (arch, shape, multi_pod, variant, sets), p, text in zip(
+            DRYRUN_CELLS, procs, outs):
         mesh = "pod2x16x16" if multi_pod else "pod16x16"
-        t = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--force", "--device", "cuda"]
-            + (["--multi-pod"] if multi_pod else []),
-            capture_output=True, text=True, env=env, cwd=str(ROOT),
-            timeout=600)
-        if r.returncode != 0:
-            fail(f"dry run {arch} {shape} {mesh}: "
-                 f"{(r.stdout + r.stderr)[-3000:]}")
+        if p.returncode != 0:
+            fail(f"dry run {arch} {shape} {mesh}: {text[-3000:]}")
+        v = "" if variant == "baseline" else f"__{variant}"
         path = ROOT / "artifacts" / "dryrun_torch" / \
-            f"{arch}__{shape}__{mesh}.json"
+            f"{arch}__{shape}__{mesh}{v}.json"
         rec = json.loads(path.read_text())
+        conf = rec["config"]
+        if rec["variant"] != variant or conf["overrides"] != dict(
+                kv.split("=", 1) for kv in sets):
+            fail(f"dry run {arch} {shape}: recorded variant "
+                 f"{rec['variant']}, overrides {conf['overrides']}")
         m = rec["memory"]
         ops = {op: (c["count"], c["payload_bytes"])
                for op, c in rec["collectives"]["by_op"].items()}
-        print(f"[dryrun] {arch} {shape} {mesh}: params "
+        print(f"[dryrun] {arch} {shape} {mesh} {variant} "
+              f"({conf['n_layers']} layers, overrides {conf['overrides']}, "
+              f"{conf['attn_impl']} attention): params "
               f"{m['param_bytes']} B, optimizer {m['opt_state_bytes']} B, "
               f"cache {m['cache_bytes']} B, peak {m['peak_device_bytes']} B "
               f"a device; {rec['cost']['flops_per_device']:.6g} FLOP a "
               f"device; collectives (count, payload B) {ops}; "
               f"{rec['seconds']:.1f} s traced, "
-              f"{time.perf_counter() - t:.1f} s with the process")
+              f"{time.perf_counter() - t:.1f} s for the cells' processes")
         if rec["cost"]["flops_per_device"] <= 0 or not ops:
             fail(f"dry run {arch} {shape}: an empty record")
 
@@ -1963,15 +2016,26 @@ def recorded(scenario: str, policy: str, load: float) -> dict:
     return rows[0]
 
 
-def check_chaos() -> None:
+def run_chaos(policy: str) -> dict:
+    """One chaos run on the card (a worker process's job)."""
     from repro_torch.launch import fleet
     c = CHAOS
-    for policy in ("sfs-aware", "hash"):
+    return fleet.run(policy, c["engines"], c["lanes"], c["load"], c["n"],
+                     c["seed"], device="cuda", workload=c["workload"],
+                     lifecycle=c["lifecycle"], faults=c["faults"],
+                     retry=c["retry"])
+
+
+def check_chaos() -> None:
+    """The two chaos runs at once, each in a worker process of its own
+    on the card (each is bound by its host thread's launch loop)."""
+    c = CHAOS
+    policies = ("sfs-aware", "hash")
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(policies)) as pool:
+        results = pool.map(run_chaos, policies)
+    for policy, r in zip(policies, results):
         want = recorded("chaos", policy, c["load"])
-        r = fleet.run(policy, c["engines"], c["lanes"], c["load"], c["n"],
-                      c["seed"], device="cuda", workload=c["workload"],
-                      lifecycle=c["lifecycle"], faults=c["faults"],
-                      retry=c["retry"])
         fp = r["fingerprint"][:16]
         print(f"[chaos] {policy}: fingerprint {fp} shed {r['shed']} "
               f"(recorded {want['provenance']['result_fp']} / "
@@ -2245,6 +2309,311 @@ def profile_fleet() -> None:
     print(f"[fprofile] phases {json.dumps(r['phases'])}")
 
 
+# ---------------------------------------------------------------------------
+# the last modules of the port: blocked attention, the telemetry tail,
+# the lint and the examples
+# ---------------------------------------------------------------------------
+
+# blocked attention against the plain dense path and the flash kernel at
+# qwen2.5-3b's full width (16 query heads, 2 kv heads, head_dim 128)
+BLOCKED_S = 2048
+# the training steps: (batch, sequence) of the parity step and the timed
+# steps, and of the long-sequence step (bfloat16 only)
+BLOCKED_STEP = (8, 512)
+BLOCKED_LONG = (1, 4096)
+# the port's lint, gated on its committed baseline
+LINT_ARGS = ["-m", "repro_torch.analysis", "--baseline",
+             "src/repro_torch/analysis/baseline.json"]
+HOST_EXAMPLES = ("quickstart_torch.py", "overload_demo_torch.py",
+                 "cluster_demo_torch.py")
+# examples/serve_sfs_torch.py's schedule, wall masked: the reference
+# script's (tests/test_torch_examples.py holds the port's CPU run to it);
+# the model does not change the schedule, so the card's run prints it too
+SERVE_SFS_SCHEDULE = (
+    "sfs : 40 requests in 143 ticks (wall) | median TA 6 ticks | "
+    "RTE>=0.95 65% | lane switches 66",
+    "cfs : 40 requests in 148 ticks (wall) | median TA 9 ticks | "
+    "RTE>=0.95 12% | lane switches 163")
+
+
+def run_host_script(args: list) -> str:
+    """``python *args`` from the repo's root on the host (one OpenMP
+    thread); its output, or a failure on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, *args], cwd=str(ROOT), env=env,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"{' '.join(args)} exited {r.returncode}: {r.stdout[-3000:]}")
+    return r.stdout
+
+
+def check_lint() -> None:
+    """``python -m repro_torch.analysis`` with the port's baseline, on
+    the card's host: no new finding; counts by rule printed."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "lint.json")
+        line = run_host_script(LINT_ARGS + ["--json", report, "-q"])
+        with open(report) as f:
+            s = json.load(f)["summary"]
+    line = line.strip().splitlines()[-1]
+    print(f"[lint] {line}; by rule {s['by_rule']}, baselined "
+          f"{s['baselined']}, new {s['new']}, stale baseline entries "
+          f"{s['stale_baseline_entries']}, inline-suppressed "
+          f"{s['suppressed_inline']}")
+    if s["new"] or s["stale_baseline_entries"]:
+        fail(f"lint: {s['new']} new findings, "
+             f"{s['stale_baseline_entries']} stale baseline entries")
+
+
+def check_traces() -> None:
+    """The fleet 64x4 spec with every telemetry collector on, once with
+    ``engine="torch"`` on the card (group_pick launches) and once with
+    ``engine="vector"`` on the host: canonical trace digests, ``by_rid``
+    of the first 16 rids, ``FleetSeries.to_dict`` and ``summary()``
+    (apart from ``wall_s`` and the engine's name) equal; the sfs-aware
+    and a hash run written side by side by ``save_chrome_trace`` load as
+    JSON; the card run's ``HostProfile.format()`` printed."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core.spec import (ExperimentSpec, ServerSpec,
+                                       TickWorkloadSpec, run_experiment)
+    from repro_torch.core.telemetry import Telemetry, save_chrome_trace
+    from repro_torch.kernels.group_pick import kernel as gk
+    spec = ExperimentSpec(
+        servers=tuple(ServerSpec(cores=4) for _ in range(64)),
+        dispatch="sfs-aware", predictor="history",
+        workload=TickWorkloadSpec(n=250, load=1.0, seed=23))
+    runs = {}
+    gk.launches = 0
+    for label, s, dev in (
+            ("torch", spec, "cuda"),
+            ("vector", dataclasses.replace(spec, engine="vector"), "cpu"),
+            ("hash", dataclasses.replace(spec, dispatch="hash"), "cuda")):
+        tel = Telemetry(trace=True, series_cadence=50, profile=True)
+        runs[label] = run_experiment(s, max_ticks=2_000_000, telemetry=tel,
+                                     device=dev)
+    launches = gk.launches
+    card, host = runs["torch"], runs["vector"]
+    ct, ht = card.telemetry.trace, host.telemetry.trace
+
+    def summary(r):
+        return {k: v for k, v in r.summary().items()
+                if k not in ("wall_s", "engine")}
+    same = {"digest": ct.digest() == ht.digest(),
+            "by_rid": all(ct.by_rid(r) == ht.by_rid(r) for r in range(16)),
+            "series": (card.telemetry.series.to_dict()
+                       == host.telemetry.series.to_dict()),
+            "summary": summary(card) == summary(host)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_chrome_trace(os.path.join(tmp, "fleet64.json"),
+                                 {"sfs-aware": ct,
+                                  "hash": runs["hash"].telemetry.trace})
+        size = os.path.getsize(path)
+        with open(path) as f:
+            body = json.load(f)
+    events = body["traceEvents"]
+    pids = sorted({e["pid"] for e in events})
+    print(f"[traces] 64x4 n=250 sfs-aware history, torch (card) vs vector "
+          f"(host): {same}; digest {ct.digest()[:16]}, {len(ct)} events "
+          f"{ct.counts()}; group_pick launches {launches}; summary "
+          f"{summary(card)}")
+    print(f"[traces] save_chrome_trace: {len(events)} events, pids {pids}, "
+          f"{size} B, loads as JSON")
+    print("[traces] HostProfile.format() of the card run:\n"
+          + card.telemetry.profile.format())
+    if not all(same.values()):
+        fail(f"traces: the card's run differs from the host's: {same}")
+    if launches == 0:
+        fail("traces: the torch runs launched no group_pick")
+    if pids != [0, 1] or len(events) < 2 * card.n:
+        fail(f"traces: the saved trace holds {len(events)} events, pids "
+             f"{pids}")
+
+
+def blocked_step(model, batch, impl: str, grads: bool):
+    """One forward and backward of ``loss_fn`` with attention ``impl``:
+    (loss, {name: gradient} or None, ms by CUDA events, peak GiB
+    allocated during the step)."""
+    import torch
+    from repro_torch.models.transformer import loss_fn
+    model.set_attn_impl(impl)
+    names, params = zip(*model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss, _ = loss_fn(model, batch)
+    g = torch.autograd.grad(loss, params)
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = dict(zip(names, g)) if grads else None
+    del g
+    return loss.item(), out, start.elapsed_time(end), peak
+
+
+def check_blocked_attention() -> dict:
+    """``attn_impl="blocked"`` on the card: the function against the
+    plain dense attention and the flash_attention kernel at qwen2.5-3b's
+    full width, S = BLOCKED_S causal (max abs Δ, TOL by dtype); then
+    full-width qwen2.5-3b train steps (loss and gradients, per-layer
+    checkpointing): in float32 at BLOCKED_STEP blocked against dense,
+    the loss to rel PARITY_LOSS_RTOL and each gradient to PARITY_GRAD x
+    its max |g|; ms a step and peak GiB of both in float32 and bfloat16,
+    and in bfloat16 at BLOCKED_LONG (after a warm-up step, the better of
+    two).  Launches made to compare with the flash kernel do not
+    count."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.data import DataConfig, make_batch
+    free_card()
+    cfg = configs.get(ARCH)
+    H, K, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, BLOCKED_S
+    gen = torch.Generator("cuda").manual_seed(3)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn(1, S, H, D, generator=gen, device="cuda", dtype=dt)
+        k = torch.randn(1, S, K, D, generator=gen, device="cuda", dtype=dt)
+        v = torch.randn(1, S, K, D, generator=gen, device="cuda", dtype=dt)
+        fns = {"blocked": lambda: L.blocked_attention(
+                   q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                   kv_chunk=cfg.kv_chunk),
+               "dense": lambda: L.dense_attention(q, k, v, causal=True),
+               "flash": lambda: flash_ops.flash_attention(q, k, v,
+                                                          causal=True)}
+        res = {name: fn().float() for name, fn in fns.items()}
+        err = {other: (res["blocked"] - res[other]).abs().max().item()
+               for other in ("dense", "flash")}
+        ms = {name: time_ms(fn, 10) for name, fn in fns.items()}
+        print(f"[blocked] {ARCH} attention S={S} causal {dtype} (chunks "
+              f"{cfg.q_chunk}/{cfg.kv_chunk}): max|blocked - dense| "
+              f"{err['dense']:.3g}, max|blocked - flash| {err['flash']:.3g} "
+              f"(tol {TOL[dtype]}); ms blocked {ms['blocked']:.4f}, dense "
+              f"{ms['dense']:.4f}, flash {ms['flash']:.4f}")
+        if max(err.values()) > TOL[dtype]:
+            fail(f"blocked attention {dtype}: {err}")
+        out[f"attn_{dtype}"] = dict(err=err, ms=ms)
+        del q, k, v, res
+    free_card()
+    for dtype in ("float32", "bfloat16"):
+        model = Transformer(cfg.replace(dtype=dtype, attn_impl="blocked"),
+                            device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+        cases = [BLOCKED_STEP] + ([BLOCKED_LONG] if dtype == "bfloat16"
+                                  else [])
+        for B, S in cases:
+            batch = {k: v.cuda() for k, v in make_batch(DataConfig(
+                vocab=cfg.vocab, seq_len=S, global_batch=B, seed=5),
+                0).items()}
+            parity = dtype == "float32"
+            # each timed after a warm-up (bfloat16: the better of two)
+            steps = {}
+            for impl in ("dense", "blocked"):
+                blocked_step(model, batch, impl, False)  # warm-up
+                timed = [blocked_step(model, batch, impl, False)
+                         for _ in range(1 if parity else 2)]
+                steps[impl] = (timed[0][0], min(t[2] for t in timed),
+                               max(t[3] for t in timed))
+            (ld, msd, pd), (lb, msb, pb) = steps["dense"], steps["blocked"]
+            worst = 0.0
+            if parity:
+                # the gradients of both, held at once: a pass of their own
+                ld, gd = blocked_step(model, batch, "dense", True)[:2]
+                lb, gb = blocked_step(model, batch, "blocked", True)[:2]
+                for name, g in gd.items():
+                    gmax = g.abs().max().item()
+                    e = (gb[name] - g).abs().max().item()
+                    worst = max(worst, e / max(gmax, 1e-30))
+                    if e > PARITY_GRAD * gmax:
+                        fail(f"blocked train step: grad {name} "
+                             f"max|blocked - dense| {e:.3g} > "
+                             f"{PARITY_GRAD} * {gmax:.3g}")
+                if abs(lb - ld) > PARITY_LOSS_RTOL * abs(ld):
+                    fail(f"blocked train step: loss {lb} blocked, {ld} "
+                         "dense")
+            elif abs(lb - ld) > RESUME_RTOL * abs(ld):
+                fail(f"blocked train step {dtype}: loss {lb} blocked, "
+                     f"{ld} dense")
+            print(f"[blocked] {ARCH} full-width train step {dtype} {B} x "
+                  f"{S}: loss blocked {lb:.7f} dense {ld:.7f}"
+                  + (f", worst grad max|blocked - dense| / max|g| "
+                     f"{worst:.3g}" if parity else "")
+                  + f"; ms a step blocked {msb:.1f} dense {msd:.1f}; peak "
+                  f"blocked {pb:.2f} GiB dense {pd:.2f} GiB")
+            out[f"step_{dtype}_{B}x{S}"] = dict(
+                loss=(lb, ld), ms=(msb, msd), peak_gib=(pb, pd),
+                worst_grad=worst)
+            del batch
+            if parity:
+                del gd, gb
+            free_card()
+        del model
+        free_card()
+    return out
+
+
+def run_serve_example() -> None:
+    """``examples/serve_sfs_torch.py`` at full width on the card, as a
+    subprocess: its schedule equals SERVE_SFS_SCHEDULE and every prefill
+    and decode step launched the attention kernels once a layer."""
+    from repro_torch import configs
+    n_layers = configs.get(ARCH).n_layers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable,
+                        str(ROOT / "examples" / "serve_sfs_torch.py")],
+                       cwd=str(ROOT), env=env, capture_output=True,
+                       text=True, timeout=900)
+    if r.returncode != 0:
+        fail(f"serve_sfs_torch.py exited {r.returncode}: "
+             f"{(r.stdout + r.stderr)[-3000:]}")
+    lines = r.stdout.splitlines()
+    summary = [line for line in lines if "requests in" in line]
+    calls = [line for line in lines if "kernel launches:" in line]
+    for line in summary + calls:
+        print(f"[examples] serve_sfs_torch.py: {line.strip()}")
+    masked = tuple(re.sub(r"\(\d+\.\ds wall\)", "(wall)", line)
+                   for line in summary)
+    if masked != SERVE_SFS_SCHEDULE:
+        fail(f"serve_sfs_torch.py: schedule {masked}, expected "
+             f"{SERVE_SFS_SCHEDULE}")
+    for line in calls:
+        m = re.search(r"(\d+) prefills, (\d+) decode steps on cuda.*"
+                      r"flash_attention (\d+), decode_attention (\d+)", line)
+        if m is None:
+            fail(f"serve_sfs_torch.py: did not run on the card: {line}")
+        pre, dec, fl, de = map(int, m.groups())
+        if (fl, de) != (pre * n_layers, dec * n_layers) or not fl or not de:
+            fail(f"serve_sfs_torch.py: launches {fl}, {de} for {pre} "
+                 f"prefills and {dec} decode steps of {n_layers} layers")
+
+
+def check_examples() -> None:
+    """The four port examples as subprocesses: serve_sfs_torch.py at full
+    width on the card, then the three host examples at once (one OpenMP
+    thread each); any non-zero exit fails; their summary lines
+    printed."""
+    from concurrent.futures import ThreadPoolExecutor
+    run_serve_example()
+    keys = ("median", "SFS vs CFS", "qdelay", "p50=", "dispatch [")
+    with ThreadPoolExecutor(len(HOST_EXAMPLES)) as pool:
+        texts = list(pool.map(run_host_script, [
+            [str(ROOT / "examples" / ex)] for ex in HOST_EXAMPLES]))
+    for ex, text in zip(HOST_EXAMPLES, texts):
+        rows = [line.strip() for line in text.splitlines()
+                if any(k in line for k in keys)]
+        if not rows:
+            fail(f"{ex}: printed no result lines")
+        for line in rows[:8]:
+            print(f"[examples] {ex}: {line}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2304,8 +2673,10 @@ def main(argv=None) -> int:
     phase("training", run_training)
     phase("sharded training", run_sharded_training)
     phase("dry run", run_dry_run)
+    phase("blocked attention", check_blocked_attention)
     pick = phase("group_pick", check_group_pick)
     phase("fleet 64x4", check_fleet_cpu_vs_cuda)
+    phase("traces", check_traces)
     phase("chaos", check_chaos)
     # the recorded host-backend rows and the DES rows are host code that
     # shares nothing: one pool of worker processes runs both
@@ -2315,6 +2686,8 @@ def main(argv=None) -> int:
         phase("des rows", check_des_rows, pool)
     launches["group_pick"] = phase("fleet1024", run_fleet_main_path)
     phase("fleet profile", profile_fleet)
+    phase("examples", check_examples)
+    phase("lint", check_lint)
     kernels = []
     for name, rec, line in (("flash_attention", flash, 71),
                             ("decode_attention", decode, 69),

@@ -2,8 +2,7 @@
 [arXiv:2406.12793; hf].  ChatGLM rotates only half the head dim —
 realized as rope_fraction=0.5.
 
-A copy of ``repro.configs.chatglm3_6b`` without the blocked attention's
-chunks (``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.chatglm3_6b``.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -23,4 +22,4 @@ def full() -> ModelConfig:
 def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512)
+        d_ff=128, vocab=512, q_chunk=16, kv_chunk=16)

@@ -1,11 +1,9 @@
 """dbrx-132b [moe] — 16 experts top-4, fine-grained.  [hf:databricks/dbrx-base]
 
-A copy of ``repro.configs.dbrx_132b`` without the blocked attention's
-chunks (``q_chunk``,
-``kv_chunk``). The full config serves from an int8 KV cache with
-per-token-head scales. At full width and depth (131.6 B parameters) it
-does not fit one card; the port runs it at full width only with its
-depth cut.
+A copy of ``repro.configs.dbrx_132b``. The full config serves from an
+int8 KV cache with per-token-head scales. At full width and depth (131.6
+B parameters) it does not fit one card; the port runs it at full width
+only with its depth cut.
 """
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -27,4 +25,5 @@ def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
         moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32),
-        microbatch=2, kv_cache_dtype="bfloat16")
+        microbatch=2, q_chunk=16, kv_chunk=16,
+        kv_cache_dtype="bfloat16")

@@ -1,8 +1,7 @@
 """gemma-7b [dense] — GeGLU, head_dim=256, tied embeddings.  [arXiv:2403.08295]
 
-A copy of ``repro.configs.gemma_7b`` without the blocked attention's
-chunks (``q_chunk``, ``kv_chunk``). The full config serves from an int8
-KV cache with per-token-head scales.
+A copy of ``repro.configs.gemma_7b``. The full config serves from an
+int8 KV cache with per-token-head scales.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -24,4 +23,5 @@ def full() -> ModelConfig:
 def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=32,
-        d_ff=128, vocab=512, kv_cache_dtype="bfloat16")
+        d_ff=128, vocab=512, q_chunk=16, kv_chunk=16,
+        kv_cache_dtype="bfloat16")

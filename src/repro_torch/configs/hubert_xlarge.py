@@ -6,8 +6,7 @@ feature encoder is the stubbed frontend,
 ``repro_torch.models.frontends.synth_audio_frames``).  Encoder-only:
 attention is not causal and there is no cache or decode step.
 
-A copy of ``repro.configs.hubert_xlarge`` without the blocked
-attention's chunks (``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.hubert_xlarge``.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -25,4 +24,4 @@ def full() -> ModelConfig:
 def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-        d_ff=128, vocab=64)
+        d_ff=128, vocab=64, q_chunk=16, kv_chunk=16)

@@ -6,10 +6,8 @@ positions (576 = one 24x24 base tile; anyres adds tiles, which only
 changes n_prefix) may take precomputed patch embeddings
 (``repro_torch.models.frontends.synth_vision_embeds``).
 
-A copy of ``repro.configs.llava_next_34b`` without the blocked attention's
-chunks (``q_chunk``,
-``kv_chunk``). The full config serves from an int8 KV cache with
-per-token-head scales.
+A copy of ``repro.configs.llava_next_34b``. The full config serves from
+an int8 KV cache with per-token-head scales.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -31,4 +29,4 @@ def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
         d_ff=128, vocab=512, n_prefix=8, microbatch=1,
-        kv_cache_dtype="bfloat16")
+        q_chunk=16, kv_chunk=16, kv_cache_dtype="bfloat16")

@@ -1,7 +1,6 @@
 """qwen2.5-3b [dense] — GQA (kv=2), QKV bias.  [hf:Qwen/Qwen2.5-*; hf]
 
-A copy of ``repro.configs.qwen2_5_3b`` without the blocked attention's
-chunks (``q_chunk``, ``kv_chunk``).
+A copy of ``repro.configs.qwen2_5_3b``.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -21,4 +20,4 @@ def full() -> ModelConfig:
 def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512)
+        d_ff=128, vocab=512, q_chunk=16, kv_chunk=16)

@@ -1,10 +1,8 @@
 """qwen3-moe-30b-a3b [moe] — 128 experts top-8, fine-grained (d_ff=768).
 [hf:Qwen/Qwen3-30B-A3B]
 
-A copy of ``repro.configs.qwen3_moe_30b_a3b`` without the blocked attention's
-chunks (``q_chunk``,
-``kv_chunk``). At full width and depth it serves in bfloat16 on one 80
-GB card (30.5 B parameters).
+A copy of ``repro.configs.qwen3_moe_30b_a3b``. At full width and depth
+it serves in bfloat16 on one 80 GB card (30.5 B parameters).
 """
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -26,4 +24,4 @@ def reduced() -> ModelConfig:
     return full().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32),
-        microbatch=1)
+        microbatch=1, q_chunk=16, kv_chunk=16)

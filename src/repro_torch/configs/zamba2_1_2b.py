@@ -5,9 +5,7 @@ The shared transformer block (attention + MLP, d_ff=8192) reuses one set of
 parameters at each application (Zamba2's parameter-sharing memory saving;
 the per-invocation LoRA deltas are omitted, as in the reference).
 
-A copy of ``repro.configs.zamba2_1_2b`` without the blocked attention's
-chunks (``q_chunk``,
-``kv_chunk``).
+A copy of ``repro.configs.zamba2_1_2b``.
 """
 from repro_torch.models.config import ModelConfig, SSMConfig
 
@@ -28,4 +26,5 @@ def reduced() -> ModelConfig:
     return full().replace(
         n_layers=5, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
         d_ff=128, vocab=512, attn_every=2,
-        ssm=SSMConfig(d_state=16, head_dim=8, chunk=16))
+        ssm=SSMConfig(d_state=16, head_dim=8, chunk=16),
+        q_chunk=16, kv_chunk=16)

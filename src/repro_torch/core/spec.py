@@ -1132,6 +1132,18 @@ class ExperimentResult:
                      ]).encode()
         return hashlib.sha256(blob).hexdigest()
 
+    def summary(self) -> dict:
+        return {
+            "engine": self.engine, "policy": self.policy,
+            "predictor": self.predictor, "n": self.n,
+            "servers": len(self.spec.servers),
+            "dispatch_counts": list(self.dispatch_counts),
+            "overload_bypasses": self.overload_bypasses,
+            "wall_s": self.wall_s,
+            "shed": self.shed, "timeouts": self.timeouts,
+            "retries": self.retries,
+        }
+
 
 # ---------------------------------------------------------------------------
 # The single entry point

@@ -103,9 +103,9 @@ def check_inputs(what: str, *tensors) -> None:
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{what}: a DTensor input; the CUDA kernel takes "
                         "plain tensors (sharded models run "
-                        "attn_impl='dense')")
+                        "attn_impl='blocked' or 'dense')")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: an input requires grad; the CUDA "
                            "kernel has no backward (train with "
-                           "attn_impl='dense')")
+                           "attn_impl='blocked' or 'dense')")

@@ -11,9 +11,10 @@ The port of ``repro.launch.dryrun``.  For each cell it:
   3. runs the cell's entry point once, as rank 0: the train step
      (``train_4k``), prefill (``prefill_32k``; the forward for the
      encoder-only audio arch) or the decode step (``decode_32k``,
-     ``long_500k``).  Prefill and decode build the model with the plain
-     attention (``attn_impl="dense"``): no hand-written kernel runs on
-     fake tensors;
+     ``long_500k``).  Every cell builds the model by
+     ``training_config``: the reference's blocked attention
+     (``attn_impl="blocked"``) unless ``--set attn_impl=dense``; no
+     hand-written kernel runs on fake tensors;
   4. records, per device: the bytes of params, optimizer state and
      cache from the local shard shapes; the peak of the live bytes
      (``CellRecorder``: ``MemTracker``'s method, without the ops of
@@ -61,7 +62,7 @@ from repro_torch.sharding.plan import (Plan, shard_model, to_placements,
                                        use_plan)
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.step import (batch_placements, init_train_state,
-                                    make_train_step)
+                                    make_train_step, training_config)
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
@@ -140,8 +141,11 @@ class CellRecorder(TorchDispatchMode):
         from torch.utils.flop_counter import FlopCounterMode
         self._flops = FlopCounterMode(display=False)
         self.collectives: list = []
-        self._live: dict = {}
+        self._live: dict = {}      # storage id -> (bytes, the op it came from)
         self.current = self.peak = 0
+        # what the live bytes were, by op, at a point within 5% of the peak
+        self.holders: dict = {}
+        self._held_at = 0
         self._propagating = 0
         for t in state:
             self._track(t.to_local() if isinstance(t, DTensor) else t)
@@ -150,16 +154,32 @@ class CellRecorder(TorchDispatchMode):
     def flops(self) -> int:
         return self._flops.get_total_flops()
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str = "state") -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
             return
         n = st.nbytes()
-        self._live[key] = n
+        self._live[key] = (n, op)
         weakref.finalize(st, self._free, key)
         self.current += n
-        self.peak = max(self.peak, self.current)
+        if self.current > self.peak:
+            self.peak = self.current
+            if self.peak >= 1.05 * self._held_at:
+                self._hold()
+
+    def _hold(self) -> None:
+        """Snapshot the live bytes by the op that made each storage
+        (each new peak 5% above the last snapshot)."""
+        self._held_at = self.current
+        by_op: dict = {}
+        for n, op in self._live.values():
+            c, b = by_op.get(op, (0, 0))
+            by_op[op] = (c + 1, b + n)
+        top = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:12]
+        self.holders = {"bytes": self.current, "storages": len(self._live),
+                        "by_op": {op: {"storages": c, "bytes": b}
+                                  for op, (c, b) in top}}
 
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import \
@@ -182,7 +202,7 @@ class CellRecorder(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def _free(self, key) -> None:
-        self.current -= self._live.pop(key, 0)
+        self.current -= self._live.pop(key, (0, None))[0]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -208,7 +228,7 @@ class CellRecorder(TorchDispatchMode):
             self._flops._count_flops(packet, out, args, kwargs)
         for o in (out if isinstance(out, (tuple, list)) else (out,)):
             if isinstance(o, torch.Tensor) and not isinstance(o, DTensor):
-                self._track(o)
+                self._track(o, str(packet))
         return out
 
     def _record(self, op: str, payload: int, group: int) -> None:
@@ -314,7 +334,7 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, device,
             return (plan, run, list(state["model"].parameters()),
                     _state_tensors(state["opt"]), [])
 
-        model = Transformer(cfg.replace(attn_impl="dense"), device=device)
+        model = Transformer(training_config(cfg), device=device)
         shard_model(model, plan)
         params = list(model.parameters())
         if sh.kind == "prefill":
@@ -369,6 +389,7 @@ def _measure(cfg: ModelConfig, shape_name: str, mesh, device,
             "opt_state_bytes": _local_bytes(opt_state),
             "cache_bytes": _local_bytes(cache),
             "peak_device_bytes": rec.peak,
+            "peak_holders": rec.holders,
         },
         "cost": {"flops_per_device": rec.flops},
         "collectives": collective_census(rec.collectives),
@@ -391,7 +412,10 @@ def _start_fake_world(multi_pod: bool) -> None:
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              device="cuda", cfg: Optional[ModelConfig] = None,
              variant: str = "baseline",
-             grad_compression: Optional[str] = None) -> dict:
+             grad_compression: Optional[str] = None,
+             overrides: Optional[dict] = None) -> dict:
+    """Trace one cell; ``overrides``: the ``--set`` values that made
+    ``cfg`` from the arch's config, recorded with it."""
     if cfg is None:
         cfg = configs.get(arch)
     ok, why = configs.cell_supported(cfg, shape_name)
@@ -406,11 +430,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "variant": variant, "n_devices": int(mesh.size()),
         "device": str(dev),
-        "config": {"family": cfg.family, "microbatch": cfg.microbatch,
+        "config": {"family": cfg.family, "n_layers": cfg.n_layers,
+                   "overrides": dict(overrides or {}),
+                   "microbatch": cfg.microbatch,
                    "fsdp": cfg.fsdp, "optimizer": cfg.optimizer,
                    "sharding_profile": cfg.sharding_profile,
                    "grad_compression": grad_compression,
-                   "kv_cache_dtype": cfg.kv_cache_dtype},
+                   "kv_cache_dtype": cfg.kv_cache_dtype,
+                   "attn_impl": training_config(cfg).attn_impl},
     }
     result.update(_measure(cfg, shape_name, mesh, dev,
                            grad_compression=grad_compression))
@@ -498,7 +525,9 @@ def main(argv=None):
             try:
                 res = run_cell(arch, shape, mp, device=args.device,
                                cfg=cfg_for(arch), variant=args.variant,
-                               grad_compression=args.grad_compression)
+                               grad_compression=args.grad_compression,
+                               overrides=dict(kv.split("=", 1)
+                                              for kv in args.set))
             except Exception as e:     # a failed cell is reported, not fatal
                 traceback.print_exc()
                 failures.append((arch, shape, mesh_name, repr(e)))

@@ -17,14 +17,18 @@ imports the JAX package.  The training knobs (``remat``, ``microbatch``,
 ``grad_accum``, ``grad_accum_dtype``, ``optimizer``) are the
 reference's, and so are the sharding knobs (``fsdp``: ZeRO-3 weight
 sharding over "data"; ``sharding_profile``: the rule set the dry run
-picks, ``repro_torch.launch.dryrun.build_plan``); the layer scan and
-the blocked attention's chunks are left out.
-``attn_impl`` chooses between the plain PyTorch attention (``"dense"``)
-and the hand-written kernels (``"kernel"``, which fall back to their
-plain versions only for tensors on the CPU); for the ssm and hybrid
-families it also chooses the SSD intra-chunk step (the plain einsums,
-or the ``ssd_scan`` kernel).  Training runs the plain paths
-(``repro_torch.train.step``).  The port runs every family.
+picks, ``repro_torch.launch.dryrun.build_plan``), and so are the
+blocked attention's chunks (``q_chunk``, ``kv_chunk``);
+the layer scan is left out.
+``attn_impl`` chooses among the plain PyTorch attention (``"dense"``),
+the reference's blocked attention (``"blocked"``, an online softmax over
+kv blocks in plain PyTorch) and the hand-written kernels (``"kernel"``,
+which take their plain versions only for tensors on the CPU); for the
+ssm and hybrid families it also chooses the SSD intra-chunk step (the
+``ssd_scan`` kernel under ``"kernel"``, else the plain einsums).
+Training and the dry run take a ``"kernel"`` config as ``"blocked"``,
+the reference's default (``repro_torch.train.step``).  The port runs
+every family.
 """
 from __future__ import annotations
 
@@ -83,7 +87,13 @@ class ModelConfig:
     attn_every: int = 0              # hybrid: shared attn every k ssm layers
     n_prefix: int = 0                # vlm: vision-embedding positions
     # ---- attention implementation and dtypes (not architecture) ----
-    attn_impl: str = "kernel"        # dense | kernel
+    # dense   -- the plain O(S^2) attention
+    # blocked -- the reference's default: an online softmax over kv
+    #            blocks, q in chunks (training and the dry run)
+    # kernel  -- the CUDA kernels (serving); training runs "blocked"
+    attn_impl: str = "kernel"
+    q_chunk: int = 512
+    kv_chunk: int = 512
     # ---- training (repro_torch.train) ----
     remat: str = "block"             # none | block: recompute each layer
     microbatch: int = 1              # microbatches per train step
@@ -122,9 +132,9 @@ class ModelConfig:
             assert self.ssm is not None
         if self.family == "moe":
             assert self.moe is not None
-        if self.attn_impl not in ("dense", "kernel"):
-            raise ValueError(f"attn_impl must be 'dense' or 'kernel', "
-                             f"got {self.attn_impl!r}")
+        if self.attn_impl not in ("dense", "blocked", "kernel"):
+            raise ValueError(f"attn_impl must be 'dense', 'blocked' or "
+                             f"'kernel', got {self.attn_impl!r}")
         if self.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bfloat16' or "
                              f"'int8', got {self.kv_cache_dtype!r}")

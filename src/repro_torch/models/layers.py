@@ -6,16 +6,21 @@ from integer positions), the gated MLP, the attention projections and the
 plain attention functions.  Weights of ``nn.Linear`` are ``[out, in]``,
 the transpose of the reference's ``[in, out]``.
 
-Attention comes in two implementations, chosen by ``ModelConfig.attn_impl``:
+Attention comes in three implementations, chosen by
+``ModelConfig.attn_impl``:
 
-* ``dense``  — the plain O(S^2) attention below (``dense_attention``,
-               ``decode_attention``, which also reads an int8 cache
-               quantized by ``quantize_kv``)
-* ``kernel`` — the hand-written CUDA kernels (``repro_torch.kernels``),
-               which take their plain versions only for CPU tensors
+* ``dense``   — the plain O(S^2) attention below (``dense_attention``,
+                ``decode_attention``, which also reads an int8 cache
+                quantized by ``quantize_kv``)
+* ``blocked`` — the reference's default for a full sequence
+                (``blocked_attention``: an online softmax over kv blocks,
+                q in chunks, in plain PyTorch); decode as ``dense``
+* ``kernel``  — the hand-written CUDA kernels (``repro_torch.kernels``),
+                which take their plain versions only for CPU tensors
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -301,10 +306,114 @@ def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0
     return out.to(q.dtype)
 
 
-def sharded_attention(q: DTensor, k, v, *, causal: bool) -> DTensor:
-    """``dense_attention`` on each rank's own (batch, heads, query
-    rows) shard: attention is independent per sequence and head, so no
-    collective runs inside it.  k and v take q's batch and head
+def blocked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
+                      kv_chunk: int = 512, block_skip: bool = True,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Flash-style attention: online softmax over kv blocks, chunked q.
+
+    ``repro.models.layers.blocked_attention`` in PyTorch.  The scores
+    live O(B * H * q_chunk * kv_chunk) at a time instead of O(S^2).
+    With ``block_skip`` (causal only) each q chunk visits only its
+    causal kv prefix.  q: [B,Sq,H,D]; k,v: [B,Sk,K,D] (K divides H, GQA
+    without expanding kv) -> [B,Sq,H,D].  Ragged tails are padded; the
+    padded kv positions are masked (by the causal mask when causal).
+    ``q_offset``: the position of q's first row (a sequence shard).
+    DTensor inputs (under a plan) run ``sharded_attention``."""
+    if isinstance(q, DTensor):
+        return sharded_attention(q, k, v, causal=causal, attend=(
+            functools.partial(blocked_attention, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, block_skip=block_skip)))
+    B, Sq_real, H, D = q.shape
+    Sk_real, K = k.shape[1], k.shape[2]
+    # query heads per kv head (a head shard may hold none)
+    G = H // max(K, 1)
+    scale = 1.0 / math.sqrt(D)
+    q_chunk = min(q_chunk, Sq_real)
+    kv_chunk = min(kv_chunk, Sk_real)
+    q = _pad_seq(q, q_chunk)
+    k = _pad_seq(k, kv_chunk)
+    v = _pad_seq(v, kv_chunk)
+    nq, nk = q.shape[1] // q_chunk, k.shape[1] // kv_chunk
+    kv_padded = k.shape[1] != Sk_real
+    # float32 operands laid out for the two products of each block:
+    # q [B,K,G,S,D] (scaled), k [B,K,D,S], v [B,K,S,D]; a chunk or a
+    # block is a slice along S
+    qh = (q.float() * scale).reshape(B, nq * q_chunk, K, G, D).permute(
+        0, 2, 3, 1, 4)
+    kt = k.float().permute(0, 2, 3, 1)
+    vh = v.float().permute(0, 2, 1, 3)
+    ar_q = torch.arange(q_chunk, device=q.device)
+    ar_k = torch.arange(kv_chunk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q0 = qi * q_chunk
+        qc = qh[:, :, :, q0:q0 + q_chunk].reshape(B, K, G * q_chunk, D)
+        if causal and block_skip:
+            # only kv blocks whose start <= the q block's last position
+            n_vis = min(nk, (q_offset + q0 + q_chunk + kv_chunk - 1)
+                        // kv_chunk)
+        else:
+            n_vis = nk
+        for j in range(n_vis):
+            k0 = j * kv_chunk
+            s = torch.matmul(qc, kt[..., k0:k0 + kv_chunk]).view(
+                B, K, G, q_chunk, kv_chunk)
+            # the reference masks every block; a block with nothing to
+            # mask is left as it is (the same values)
+            if causal and k0 + kv_chunk - 1 > q_offset + q0:
+                s = s.masked_fill((q_offset + q0 + ar_q)[:, None]
+                                  < (k0 + ar_k)[None, :], NEG_INF)
+            elif not causal and kv_padded and j == nk - 1:
+                s = s.masked_fill(k0 + ar_k >= Sk_real, NEG_INF)
+            vj = vh[:, :, k0:k0 + kv_chunk]
+            if n_vis == 1:
+                # one block: the online softmax is the softmax itself
+                p = torch.softmax(s, dim=-1).view(B, K, G * q_chunk,
+                                                  kv_chunk)
+                acc = torch.matmul(p, vj).view(B, K, G, q_chunk, D)
+                l = None
+                continue
+            # the running max only steadies exp: the result does not
+            # depend on it, so no gradient flows through it
+            m_blk = s.detach().amax(dim=-1)
+            if j == 0:
+                # the running max starts at -inf: no correction yet
+                m = m_blk
+                p = torch.exp(s - m[..., None])
+                l = p.sum(dim=-1)
+                acc = torch.matmul(p.view(B, K, G * q_chunk, kv_chunk),
+                                   vj).view(B, K, G, q_chunk, D)
+                continue
+            m_new = torch.maximum(m, m_blk)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(p.view(B, K, G * q_chunk, kv_chunk), vj).view(
+                B, K, G, q_chunk, D)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc if l is None else acc / l[..., None].clamp_min(1e-30)
+        # [B,K,G,q,D] -> [B,q,K*G,D]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, D))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out[:, :Sq_real].to(q.dtype)
+
+
+def _pad_seq(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Pad the seq axis (1) of [B,S,...] with zeros up to a multiple of
+    ``chunk``."""
+    rem = x.shape[1] % chunk
+    if rem == 0:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - 2) + [0, chunk - rem])
+
+
+def sharded_attention(q: DTensor, k, v, *, causal: bool,
+                      attend=dense_attention) -> DTensor:
+    """``attend`` (``dense_attention``, or ``blocked_attention`` with
+    its chunks) on each rank's own (batch, heads, query rows) shard:
+    attention is independent per sequence and head, so no collective
+    runs inside it.  k and v take q's batch and head
     placements, whole over the sequence; where q's rows are split over
     a mesh dim, their gradient there is a partial sum.  (DTensor's own
     propagation of the attention einsums over a 3-D mesh takes minutes
@@ -317,8 +426,8 @@ def sharded_attention(q: DTensor, k, v, *, causal: bool) -> DTensor:
     q = to_placements(q, mesh, pl)
     k, v = (to_placements(t, mesh, kpl).to_local(grad_placements=kgrad)
             for t in (k, v))
-    o = dense_attention(q.to_local(), k, v, causal=causal,
-                        q_offset=local_offset(q, 1))
+    o = attend(q.to_local(), k, v, causal=causal,
+               q_offset=local_offset(q, 1))
     return DTensor.from_local(o.contiguous(), mesh, pl, shape=q.shape,
                               stride=contiguous_stride(q.shape))
 

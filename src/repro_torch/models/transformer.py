@@ -83,6 +83,7 @@ class DecoderBlock(nn.Module):
         d = cfg.d_model
         self.attn_impl = cfg.attn_impl
         self.causal = cfg.causal
+        self.chunks = dict(q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         self.ln1 = L.RMSNorm(d, cfg.norm_eps, device)
         self.attn = L.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                 cfg.qkv_bias, device, dtype)
@@ -136,7 +137,11 @@ class DecoderBlock(nn.Module):
                            "head_dim")
                 ve = shard(L._expand_kv(v, H), "batch", "seq", "heads",
                            "head_dim")
-                o = L.dense_attention(q, ke, ve, causal=self.causal)
+                if self.attn_impl == "blocked":
+                    o = L.blocked_attention(q, ke, ve, causal=self.causal,
+                                            **self.chunks)
+                else:
+                    o = L.dense_attention(q, ke, ve, causal=self.causal)
             o = shard(o, "batch", "seq", "heads", "head_dim")
         else:
             # deferred commit: attend over the cache plus the in-flight
@@ -415,8 +420,9 @@ class Transformer(nn.Module):
                                     else [self.shared])
 
     def set_attn_impl(self, impl: str) -> None:
-        """Switch attention and the SSD step between "dense" (the plain
-        PyTorch versions) and "kernel"."""
+        """Switch attention and the SSD step among "dense" (the plain
+        PyTorch versions), "blocked" (the blocked attention, the plain
+        SSD) and "kernel"."""
         self.cfg = self.cfg.replace(attn_impl=impl)
         for blk in self._blocks():
             if isinstance(blk, DecoderBlock):

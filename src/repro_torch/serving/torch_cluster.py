@@ -684,6 +684,8 @@ class _TorchGroup:
         event).  Order within a tick is irrelevant — traces compare
         canonically sorted (core/telemetry.py)."""
         tr, st, mem = self.trace, self.store, self.members
+        if tr is None:
+            return
         keys = ([("admit", "trace_adm"), ("bypass", "trace_byp"),
                  ("demote", "trace_dem")] if self.policy == "sfs" else [])
         for kind, key in keys + [("preempt", "trace_pre")]:

@@ -4,9 +4,10 @@ accumulation, optional int8 error feedback, then the optimizer update.
 The port of ``repro.train.step``.  The train state is a dict:
 
 * ``model``: the ``Transformer`` (its parameters are the reference's
-  ``params``), built with ``attn_impl="dense"``: training runs the plain
-  attention and the plain SSD step, as the reference trains on its jnp
-  paths, and differentiates no hand-written kernel;
+  ``params``), built by ``training_config``: a ``"kernel"`` config
+  trains with ``attn_impl="blocked"``, the reference's default (``"dense"``
+  stays selectable), and the plain SSD step, as the reference trains on
+  its jnp paths; no hand-written kernel is differentiated;
 * ``opt``: the optimizer's state (``repro_torch.train.optimizer``);
 * ``step``: the number of steps taken (an int);
 * ``ef``: the error-feedback residuals, once ``grad_compression`` has
@@ -59,15 +60,24 @@ from repro_torch.train import leaves as LV
 from repro_torch.train.optimizer import Optimizer, get_optimizer
 
 
+def training_config(cfg: ModelConfig) -> ModelConfig:
+    """The config a model trains (and the dry run traces) with: a
+    ``"kernel"`` config takes the reference's default attention,
+    ``"blocked"`` (the CUDA wrappers refuse an input that requires
+    grad); ``"dense"`` and ``"blocked"`` stay as they are."""
+    return cfg.replace(attn_impl="blocked") if cfg.attn_impl == "kernel" \
+        else cfg
+
+
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
                      device="cuda",
                      generator: Optional[torch.Generator] = None,
                      plan: Optional[Plan] = None) -> dict:
-    """A fresh train state: the model (seeded weights on ``device``, the
-    plain attention), its optimizer state and step 0; with ``plan``,
+    """A fresh train state: the model (seeded weights on ``device``,
+    ``training_config(cfg)``), its optimizer state and step 0; with ``plan``,
     sharded by it (``place_state``; every rank draws the same weights
     and keeps its chunk)."""
-    model = Transformer(cfg.replace(attn_impl="dense"), device=device,
+    model = Transformer(training_config(cfg), device=device,
                         generator=generator)
     if plan is not None:
         shard_model(model, plan)
@@ -209,9 +219,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 
     def train_step(state: dict, batch: dict):
         model = state["model"]
-        if model.cfg.attn_impl != "dense":
+        if model.cfg.attn_impl == "kernel":
             raise ValueError("training runs the plain attention: build the "
-                             "model with attn_impl='dense' "
+                             "model with attn_impl='blocked' or 'dense' "
                              "(init_train_state does)")
         dev = model.device
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}

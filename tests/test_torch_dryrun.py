@@ -188,6 +188,12 @@ def test_mini_dryrun_state_bytes_match_reference_specs(arch, shape,
         assert mem["cache_bytes"] == 0
     state = mem["param_bytes"] + mem["opt_state_bytes"] + mem["cache_bytes"]
     assert mem["peak_device_bytes"] >= state
+    # the live bytes by op, at a point within 5% of the peak
+    held = mem["peak_holders"]
+    assert mem["peak_device_bytes"] / 1.05 <= held["bytes"] <= \
+        mem["peak_device_bytes"]
+    assert sum(v["bytes"] for v in held["by_op"].values()) <= held["bytes"]
+    assert "state" in held["by_op"] or len(held["by_op"]) == 12
     assert res["cost"]["flops_per_device"] > 0
     assert res["collectives"]["n_collectives"] > 0
 

@@ -15,8 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = [ROOT / "examples" / f"{name}_torch.py"
+            for name in ("quickstart", "overload_demo", "cluster_demo",
+                         "serve_sfs")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,6 +45,9 @@ def imported_modules(path: Path):
 
 def test_port_files_import_no_jax_and_no_reference():
     assert len(PORT_FILES) > 10
+    assert all(p.is_file() for p in EXAMPLES)
+    assert ROOT / "src" / "repro_torch" / "analysis" / "passes" / \
+        "torch_hotpath.py" in PORT_FILES
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in PORT_FILES for line, mod in imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -229,3 +235,27 @@ def test_sharded_entry_points_default_to_cuda():
         dryrun.main(["--arch", "qwen2.5-3b", "--shape", "train_4k"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1", "--mesh", "pod"])
+
+
+def test_the_lint_and_the_examples_load_no_jax():
+    """The port's lint (a whole scan of ``src/repro_torch``) and every
+    module the four port examples import run in one process that loads
+    no JAX and nothing of the reference (``tests/test_torch_examples.py``
+    runs the examples themselves)."""
+    mods = sorted({mod for p in EXAMPLES for _, mod in imported_modules(p)})
+    assert "repro_torch.core.simulator" in mods and \
+        "repro_torch.serving" in mods
+    code = ("import contextlib, io, sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "from repro_torch.analysis.cli import main\n"
+            "with contextlib.redirect_stdout(io.StringIO()):\n"
+            "    assert main(['--baseline',\n"
+            "        'src/repro_torch/analysis/baseline.json']) == 0\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
