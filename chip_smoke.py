@@ -109,13 +109,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ms a step, peak memory, and the collectives of one more sharded step
    by op (the functional collectives DTensor runs, as CommDebugMode
    counts them);
-   "dry run": ``python -m repro_torch.launch.dryrun`` on the card's host
-   for qwen2.5-3b ``train_4k`` and ``decode_32k`` on pod16x16 and
-   qwen3-moe-30b-a3b ``prefill_32k`` on pod2x16x16, cut to 2 layers
-   (the blocked attention's kv blocks at 32k), the three at once (fake
-   process groups
-   of 256 and 512 ranks, fake CUDA tensors): each record's per-device
-   state and peak bytes, FLOPs, collectives by op and seconds;
+   "dry run" (a host phase, see below): ``python -m
+   repro_torch.launch.dryrun`` on the card's host for llama3-405b
+   ``train_4k`` at full width cut to 2 layers (Adafactor, 16
+   microbatches), qwen2.5-3b ``train_4k`` and ``decode_32k`` on pod16x16
+   and qwen3-moe-30b-a3b ``prefill_32k`` on pod2x16x16, cut to 2 layers
+   (the blocked attention's kv blocks at 32k) (fake process groups of
+   256 and 512 ranks, fake CUDA tensors): each record's per-device
+   state and peak bytes, FLOPs, collectives by op and seconds; a train
+   cell fails if any op's live bytes near the peak (``peak_holders``)
+   reach the global size of its largest stacked leaf in float32;
    "blocked attention" (``attn_impl="blocked"``, the reference's
    default for training and the dry run): the function against the
    plain dense attention and the flash_attention kernel at qwen2.5-3b's
@@ -146,19 +149,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FleetSeries.to_dict`` and ``summary()`` (apart from ``wall_s``)
    equal; a hash run's trace beside the sfs-aware one written by
    ``save_chrome_trace`` loads as JSON; ``HostProfile.format()`` printed;
-10. the chaos scenario of ``benchmarks/cluster_sweep.py`` (16 x 4 engines,
-   load 0.8, faults + retries + shedding) on the card under sfs-aware and
-   hash (one worker process each, at once): fingerprint and shed count
-   equal the recorded rows of ``benchmarks/baselines/BENCH_cluster.json``;
-   "recorded rows": the port's ``engine="vector"`` and ``engine="tick"``
-   (host code, in worker processes) on all eight ``elastic`` and
-   ``chaos`` rows of that file (loads 0.6 and 0.8, sfs-aware and hash),
-   each spec built as ``run_elastic`` and ``run_chaos`` build it:
-   ``vector`` reproduces every row's fingerprint and shed count, ``tick``
-   the elastic rows' and, on the chaos rows, those of the JAX package's
-   own tick backend (``TICK_CHAOS``);
-   "des rows": the port's discrete-event simulator (``engine="des"``,
-   host code, in the same worker processes) on every recorded DES row:
+10. "chaos and recorded rows (torch)": the fleet backend on the card
+   on all eight ``elastic`` and ``chaos`` rows of
+   ``benchmarks/baselines/BENCH_cluster.json`` (16 x 4 engines, 20,000
+   requests; sfs-aware and hash), one worker process each, all eight at
+   once: the chaos scenario of ``benchmarks/cluster_sweep.py`` at load
+   0.8 (faults + retries + shedding) through the fleet launcher, and
+   the elastic rows at loads 0.6 and 0.8 and the chaos rows at 0.6
+   through ``run_experiment(engine="torch")``, each spec built as
+   ``run_elastic`` and ``run_chaos`` build it: fingerprint, shed count
+   and ``n`` equal the recorded row's;
+   "recorded rows" (a host phase): the port's ``engine="vector"`` and
+   ``engine="tick"`` on all eight rows: ``vector`` reproduces every
+   row's fingerprint and shed count, ``tick`` the elastic rows' and, on
+   the chaos rows, those of the JAX package's own tick backend
+   (``TICK_CHAOS``);
+   "des rows" (a host phase): the port's discrete-event simulator
+   (``engine="des"``) on every recorded DES row:
    the 16 ``layer: "des"`` rows of ``BENCH_cluster.json`` (uniform and
    mixed servers, four dispatch policies, loads 0.8 and 1.0), each
    rebuilt from its provenance through the port's ``from_json`` with the
@@ -182,15 +189,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. "examples": ``examples/serve_sfs_torch.py`` at full width on the
    card (qwen2.5-3b, 40 requests, sfs against cfs): its schedule equals
    the reference script's and every prefill and decode step launched
-   the attention kernels once a layer; the three host examples
-   (``quickstart_torch.py``, ``overload_demo_torch.py``,
-   ``cluster_demo_torch.py``), started in the background after phase 3,
-   exit 0; their result lines printed;
-14. "lint": ``python -m repro_torch.analysis`` with the port's baseline
-   (``src/repro_torch/analysis/baseline.json``), run in the background
-   beside the phases: no new finding; counts by rule printed.
+   the attention kernels once a layer; "host examples" (a host phase):
+   the three host examples (``quickstart_torch.py``,
+   ``overload_demo_torch.py``, ``cluster_demo_torch.py``) exit 0; their
+   result lines printed;
+14. "lint" (a host phase): ``python -m repro_torch.analysis`` with the
+   port's baseline (``src/repro_torch/analysis/baseline.json``): no new
+   finding; counts by rule printed.
 
-Each phase prints its wall time (``[time]``).  It then prints one JSON
+The host phases (no device work: the dry run, the ``vector``, ``tick``
+and ``des`` rows, the host examples and the lint) are started after
+phase 3 in a pool of HOST_WORKERS worker processes, longest jobs
+first, and run beside the card's phases; "host phases" waits for them
+at the end and checks each, so every check stays and any failure fails
+the run.  Their timings are not gates; the serving walls, the profiles'
+host-bound ms a tick and the training phase's host-CPU parity step run
+beside them.
+
+Each phase prints its wall time (``[time]``; a host phase its span and
+worker time).  It then prints one JSON
 line describing the four kernels (launches summed over phases 5 and 10,
 the replica runs included) and, last, the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -1619,8 +1636,12 @@ SHARDED_RTOL = 1e-5
 # default) runs 2,080 kv blocks a layer at 32k tokens, ~17 s of
 # fake-tensor operations a layer on the card's host, so qwen3-moe's
 # prefill cell keeps its shapes and plan at 2 of 48 layers, recorded as
-# the variant "layers2" (the smoke does not cover that cell at 48 layers)
-DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False, "baseline", ()),
+# the variant "layers2" (the smoke does not cover that cell at 48 layers);
+# llama3-405b's train cell (Adafactor, 16 microbatches) at full width and
+# 2 of 126 layers holds the optimizer's update to the local shards
+DRYRUN_CELLS = (("llama3-405b", "train_4k", False, "layers2",
+                 ("n_layers=2",)),
+                ("qwen2.5-3b", "train_4k", False, "baseline", ()),
                 ("qwen2.5-3b", "decode_32k", False, "baseline", ()),
                 ("qwen3-moe-30b-a3b", "prefill_32k", True, "layers2",
                  ("n_layers=2",)))
@@ -1717,34 +1738,48 @@ def run_sharded_training() -> None:
         fail("sharded training launched a kernel")
 
 
-def run_dry_run() -> None:
-    """The port's dry run of DRYRUN_CELLS on a fake process group of 256
-    or 512 ranks, on the card's host (fake CUDA tensors: nothing is
-    allocated), one process a cell, all at once with one OpenMP thread
-    each; each record's per-device bytes, FLOPs and collectives
-    printed."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    t = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--force", "--device", "cuda",
-         "--variant", variant]
+def run_dryrun_cell(cell) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` on one of DRYRUN_CELLS:
+    (exit code, output).  A host-pool job."""
+    arch, shape, multi_pod, variant, sets = cell
+    return run_command(
+        ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+         shape, "--force", "--device", "cuda", "--variant", variant]
         + (["--multi-pod"] if multi_pod else [])
-        + [a for kv in sets for a in ("--set", kv)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(ROOT)) for arch, shape, multi_pod, variant, sets
-        in DRYRUN_CELLS]
-    try:
-        outs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for (arch, shape, multi_pod, variant, sets), p, text in zip(
-            DRYRUN_CELLS, procs, outs):
+        + [a for kv in sets for a in ("--set", kv)])
+
+
+def largest_stacked_leaf(arch: str, sets) -> tuple:
+    """(key, float32 bytes) of the largest stacked reference leaf of
+    ``arch`` under the ``--set`` overrides ``sets``, from a model of fake
+    tensors (shapes only)."""
+    import math
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import leaves as LV
+    cfg = configs.get(arch).replace(**{
+        k: int(v) for k, v in (kv.split("=", 1) for kv in sets)})
+    with FakeTensorMode():
+        params = dict(Transformer(cfg, device="cpu").named_parameters())
+    return max(((leaf.key, 4 * math.prod(LV.ref_shape(
+        leaf, params[leaf.names[0]].shape)))
+        for leaf in LV.param_leaves(cfg) if leaf.stacked),
+        key=lambda kv: kv[1])
+
+
+def check_dry_run(cells, results) -> None:
+    """The records of DRYRUN_CELLS, each traced by ``python -m
+    repro_torch.launch.dryrun`` in a host-pool worker (fake process
+    groups of 256 or 512 ranks, fake CUDA tensors: nothing is
+    allocated, one OpenMP thread): each record's per-device bytes, FLOPs
+    and collectives printed; a train cell fails if any entry of its
+    ``peak_holders`` holds a stacked leaf's global size in float32 (the
+    size of an optimizer temporary built whole on every device)."""
+    for (arch, shape, multi_pod, variant, sets), (rc, text) in zip(
+            cells, results):
         mesh = "pod2x16x16" if multi_pod else "pod16x16"
-        if p.returncode != 0:
+        if rc != 0:
             fail(f"dry run {arch} {shape} {mesh}: {text[-3000:]}")
         v = "" if variant == "baseline" else f"__{variant}"
         path = ROOT / "artifacts" / "dryrun_torch" / \
@@ -1760,15 +1795,26 @@ def run_dry_run() -> None:
                for op, c in rec["collectives"]["by_op"].items()}
         print(f"[dryrun] {arch} {shape} {mesh} {variant} "
               f"({conf['n_layers']} layers, overrides {conf['overrides']}, "
-              f"{conf['attn_impl']} attention): params "
+              f"{conf['attn_impl']} attention, {conf['optimizer']}): params "
               f"{m['param_bytes']} B, optimizer {m['opt_state_bytes']} B, "
               f"cache {m['cache_bytes']} B, peak {m['peak_device_bytes']} B "
               f"a device; {rec['cost']['flops_per_device']:.6g} FLOP a "
               f"device; collectives (count, payload B) {ops}; "
-              f"{rec['seconds']:.1f} s traced, "
-              f"{time.perf_counter() - t:.1f} s for the cells' processes")
+              f"{rec['seconds']:.1f} s traced")
         if rec["cost"]["flops_per_device"] <= 0 or not ops:
             fail(f"dry run {arch} {shape}: an empty record")
+        if not shape.startswith("train"):
+            continue
+        held = m["peak_holders"]
+        key, whole = largest_stacked_leaf(arch, sets)
+        print(f"[dryrun] {arch} {shape} {variant}: live bytes by op near "
+              f"the peak {held['by_op']}; largest stacked leaf {key} "
+              f"{whole} B in float32")
+        big = {op: h["bytes"] for op, h in held["by_op"].items()
+               if h["bytes"] >= whole}
+        if big:
+            fail(f"dry run {arch} {shape}: {big} hold a stacked leaf's "
+                 f"global size ({key}, {whole} B) on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -2026,22 +2072,20 @@ def run_chaos(policy: str) -> dict:
                      retry=c["retry"])
 
 
-def check_chaos() -> None:
-    """The two chaos runs at once, each in a worker process of its own
-    on the card (each is bound by its host thread's launch loop)."""
+def check_chaos(policies, results) -> None:
+    """The chaos runs (``run_chaos``) against the recorded rows:
+    fingerprint, shed count and ``n`` (completed plus shed)."""
     c = CHAOS
-    policies = ("sfs-aware", "hash")
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(len(policies)) as pool:
-        results = pool.map(run_chaos, policies)
     for policy, r in zip(policies, results):
         want = recorded("chaos", policy, c["load"])
         fp = r["fingerprint"][:16]
-        print(f"[chaos] {policy}: fingerprint {fp} shed {r['shed']} "
-              f"(recorded {want['provenance']['result_fp']} / "
-              f"{want['shed']}), short p99 {r['short_p99']}, wall "
+        print(f"[chaos] {policy}: fingerprint {fp} shed {r['shed']} n "
+              f"{r['n'] + r['shed']} (recorded "
+              f"{want['provenance']['result_fp']} / {want['shed']} / "
+              f"{want['n']}), short p99 {r['short_p99']}, wall "
               f"{r['wall_s']:.2f} s, stepped ticks {r['stepped_ticks']}")
-        if fp != want["provenance"]["result_fp"] or r["shed"] != want["shed"]:
+        if (fp, r["shed"], r["n"] + r["shed"]) != (
+                want["provenance"]["result_fp"], want["shed"], want["n"]):
             fail(f"chaos {policy}: differs from the recorded row")
 
 
@@ -2074,18 +2118,21 @@ def run_recorded(job) -> tuple:
     return res.fingerprint()[:16], res.shed, res.n + res.shed, res.wall_s
 
 
-def check_recorded_rows(pool) -> None:
-    """The port's host backends on all eight elastic and chaos rows of
-    BENCH_cluster.json (recorded on the JAX package's vector backend):
-    engine="vector" reproduces every row's fingerprint and shed count,
-    engine="tick" the elastic rows' and, on the chaos rows, the JAX
-    package's tick backend's (``TICK_CHAOS``).  The 16 runs are host code
-    only and share nothing, so they run in worker processes, several at
-    a time."""
-    jobs = [(sc, pol, load, engine) for sc in ("elastic", "chaos")
+def recorded_jobs(engines) -> list:
+    """(scenario, policy, load, engine) of all eight elastic and chaos
+    rows of BENCH_cluster.json on each of ``engines``."""
+    return [(sc, pol, load, engine) for sc in ("elastic", "chaos")
             for load in (0.6, 0.8) for pol in ("sfs-aware", "hash")
-            for engine in ("vector", "tick")]
-    results = pool.map(run_recorded, jobs, chunksize=1)
+            for engine in engines]
+
+
+def check_recorded(jobs, results) -> None:
+    """Each recorded row's run (``run_recorded``) against the row of
+    BENCH_cluster.json (recorded on the JAX package's vector backend):
+    ``vector`` and ``torch`` (bit-exact with it) reproduce every row's
+    fingerprint, shed count and ``n``; ``tick`` the elastic rows' and,
+    on the chaos rows, the JAX package's tick backend's
+    (``TICK_CHAOS``)."""
     bad = []
     for (sc, pol, load, engine), (fp, shed, n, wall) in zip(jobs, results):
         row = recorded(sc, pol, load)
@@ -2101,6 +2148,26 @@ def check_recorded_rows(pool) -> None:
             bad.append(f"{sc} {pol} {load} {engine}")
     if bad:
         fail("recorded rows differ: " + "; ".join(bad))
+
+
+def check_recorded_rows() -> None:
+    """``engine="torch"`` on the card on all eight elastic and chaos rows
+    of BENCH_cluster.json, each held to the recorded fingerprint, shed
+    count and ``n``: the two chaos rows at CHAOS's load through the
+    fleet launcher (``run_chaos``), the six others (elastic at 0.6 and
+    0.8, chaos at 0.6; sfs-aware and hash) through ``run_experiment``
+    (``run_recorded``); each run in a worker process of its own, all
+    eight at once (each is bound by its host thread's launch loop)."""
+    policies = ("sfs-aware", "hash")
+    jobs = [j for j in recorded_jobs(("torch",))
+            if (j[0], j[2]) != ("chaos", CHAOS["load"])]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(policies) + len(jobs)) as pool:
+        chaos = pool.map_async(run_chaos, policies, chunksize=1)
+        rows = pool.map_async(run_recorded, jobs, chunksize=1)
+        chaos, rows = chaos.get(), rows.get()
+    check_chaos(policies, chaos)
+    check_recorded(jobs, rows)
 
 
 def des_rows() -> list:
@@ -2170,24 +2237,27 @@ def run_des_job(job) -> tuple:
             wall, digest)
 
 
-def check_des_rows(pool) -> None:
-    """The port's DES on every recorded DES row (25 rows, two seeds
-    each) and the three GOLDEN_HINTED digests, in worker processes.
+def des_jobs() -> list:
+    """The jobs of ``run_des_job``: each seed of every recorded DES row
+    (25 rows, two seeds each), then the three GOLDEN_HINTED runs."""
+    jobs = []
+    for label, row in des_rows():
+        kind = "cluster" if label.startswith("cluster") else "predict"
+        jobs += [(kind, row["provenance"], seed)
+                 for seed in row["provenance"]["seed"]]
+    return jobs + [("golden", d, None) for d in GOLDEN_HINTED]
+
+
+def check_des(jobs, results) -> None:
+    """The port's DES on every recorded DES row and the three
+    GOLDEN_HINTED digests (``des_jobs``, run in host-pool workers).
     Each seed's fingerprint must equal the recorded one, or for the two
     seeds of ``DES_REDRAWN``, the JAX package's own on the workload this
     host draws, which must be the one it was taken on."""
     from repro_torch.core.metrics import bucket_stats
     rows = des_rows()
-    jobs, owner = [], []
-    for i, (label, row) in enumerate(rows):
-        kind = "cluster" if label.startswith("cluster") else "predict"
-        for seed in row["provenance"]["seed"]:
-            jobs.append((kind, row["provenance"], seed))
-            owner.append(i)
-    jobs += [("golden", d, None) for d in GOLDEN_HINTED]
-    t = time.perf_counter()
-    results = pool.map(run_des_job, jobs, chunksize=1)
-    wall = time.perf_counter() - t
+    owner = [i for i, (_, row) in enumerate(rows)
+             for _ in row["provenance"]["seed"]]
     bad = []
     for i, (label, row) in enumerate(rows):
         got = [res for res, o in zip(results, owner) if o == i]
@@ -2226,7 +2296,7 @@ def check_des_rows(pool) -> None:
             bad.append(f"golden {dispatch}")
     print(f"[des] {len(jobs)} runs ({len(rows)} rows, "
           f"{len(GOLDEN_HINTED)} goldens): {sum(r[4] for r in results):.3f}"
-          f" s of worker wall in {wall:.3f} s")
+          f" s of worker wall")
     if bad:
         fail("DES rows differ: " + "; ".join(bad))
 
@@ -2324,6 +2394,9 @@ BLOCKED_LONG = (1, 4096)
 # the port's lint, gated on its committed baseline
 LINT_ARGS = ["-m", "repro_torch.analysis", "--baseline",
              "src/repro_torch/analysis/baseline.json"]
+# worker processes for the host-only phases, beside the card's phases
+# (whose host threads keep the rest of the card host's 8 cores)
+HOST_WORKERS = 4
 HOST_EXAMPLES = ("quickstart_torch.py", "overload_demo_torch.py",
                  "cluster_demo_torch.py")
 # examples/serve_sfs_torch.py's schedule, wall masked: the reference
@@ -2336,28 +2409,35 @@ SERVE_SFS_SCHEDULE = (
     "RTE>=0.95 12% | lane switches 163")
 
 
-def run_host_script(args: list) -> str:
+def run_command(args: list) -> tuple:
     """``python *args`` from the repo's root on the host (one OpenMP
-    thread); its output, or a failure on a non-zero exit."""
+    thread): (exit code, output).  A host-pool job."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, *args], cwd=str(ROOT), env=env,
                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                        text=True, timeout=600)
-    if r.returncode != 0:
-        fail(f"{' '.join(args)} exited {r.returncode}: {r.stdout[-3000:]}")
-    return r.stdout
+    return r.returncode, r.stdout
 
 
-def check_lint() -> None:
-    """``python -m repro_torch.analysis`` with the port's baseline, on
-    the card's host: no new finding; counts by rule printed."""
+def run_lint(_=None) -> tuple:
+    """The port's lint with its baseline: (exit code, output, the JSON
+    report's summary).  A host-pool job."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         report = os.path.join(tmp, "lint.json")
-        line = run_host_script(LINT_ARGS + ["--json", report, "-q"])
-        with open(report) as f:
-            s = json.load(f)["summary"]
-    line = line.strip().splitlines()[-1]
+        rc, out = run_command(LINT_ARGS + ["--json", report, "-q"])
+        summary = (json.loads(Path(report).read_text())["summary"]
+                   if rc == 0 else None)
+    return rc, out, summary
+
+
+def check_lint(jobs, results) -> None:
+    """``python -m repro_torch.analysis`` with the port's baseline, on
+    the card's host: no new finding; counts by rule printed."""
+    ((rc, out, s),) = results
+    if rc != 0:
+        fail(f"lint exited {rc}: {out[-3000:]}")
+    line = out.strip().splitlines()[-1]
     print(f"[lint] {line}; by rule {s['by_rule']}, baselined "
           f"{s['baselined']}, new {s['new']}, stale baseline entries "
           f"{s['stale_baseline_entries']}, inline-suppressed "
@@ -2365,6 +2445,71 @@ def check_lint() -> None:
     if s["new"] or s["stale_baseline_entries"]:
         fail(f"lint: {s['new']} new findings, "
              f"{s['stale_baseline_entries']} stale baseline entries")
+
+
+def check_host_examples(jobs, results) -> None:
+    """The three host examples (``HOST_EXAMPLES``, host-pool jobs): any
+    non-zero exit fails; their summary lines printed."""
+    keys = ("median", "SFS vs CFS", "qdelay", "p50=", "dispatch [")
+    for ex, (rc, text) in zip(HOST_EXAMPLES, results):
+        if rc != 0:
+            fail(f"{ex} exited {rc}: {text[-3000:]}")
+        rows = [line.strip() for line in text.splitlines()
+                if any(k in line for k in keys)]
+        if not rows:
+            fail(f"{ex}: printed no result lines")
+        for line in rows[:8]:
+            print(f"[examples] {ex}: {line}")
+
+
+def timed(fn, job) -> tuple:
+    """``(fn(job), start, end)`` on the host's clock, in a worker."""
+    t = time.time()
+    out = fn(job)
+    return out, t, time.time()
+
+
+def _host_worker() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+class HostPhases:
+    """The host-only phases (no device work: the dry run's fake tensors,
+    the ``vector``, ``tick`` and ``des`` rows, the host examples, the
+    lint), started in a pool of HOST_WORKERS worker processes beside the
+    card's phases and checked at the end: every check is kept and any
+    failure fails the run."""
+
+    def __init__(self):
+        from concurrent.futures import ProcessPoolExecutor
+        self.pool = ProcessPoolExecutor(
+            HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_worker)
+        self.phases: list = []
+
+    def start(self, label: str, fn, jobs: list, check) -> None:
+        """Queue ``fn`` on each of ``jobs``; ``check(jobs, results)``
+        runs at ``finish``."""
+        futures = [self.pool.submit(timed, fn, j) for j in jobs]
+        self.phases.append((label, jobs, futures, check))
+
+    def finish(self) -> None:
+        """Wait for every phase in turn, check it and print its span and
+        worker time (``[time] ... (host pool)``)."""
+        for label, jobs, futures, check in self.phases:
+            t = time.perf_counter()
+            out = [f.result() for f in futures]
+            waited = time.perf_counter() - t
+            check(jobs, [o[0] for o in out])
+            print(f"[time] {label} (host pool): "
+                  f"{max(o[2] for o in out) - min(o[1] for o in out):.1f} s "
+                  f"from its first job's start to its last's end, "
+                  f"{sum(o[2] - o[1] for o in out):.1f} s of worker time, "
+                  f"{waited:.1f} s waited for at the end")
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def check_traces() -> None:
@@ -2594,26 +2739,6 @@ def run_serve_example() -> None:
                  f"prefills and {dec} decode steps of {n_layers} layers")
 
 
-def check_examples() -> None:
-    """The four port examples as subprocesses: serve_sfs_torch.py at full
-    width on the card, then the three host examples at once (one OpenMP
-    thread each); any non-zero exit fails; their summary lines
-    printed."""
-    from concurrent.futures import ThreadPoolExecutor
-    run_serve_example()
-    keys = ("median", "SFS vs CFS", "qdelay", "p50=", "dispatch [")
-    with ThreadPoolExecutor(len(HOST_EXAMPLES)) as pool:
-        texts = list(pool.map(run_host_script, [
-            [str(ROOT / "examples" / ex)] for ex in HOST_EXAMPLES]))
-    for ex, text in zip(HOST_EXAMPLES, texts):
-        rows = [line.strip() for line in text.splitlines()
-                if any(k in line for k in keys)]
-        if not rows:
-            fail(f"{ex}: printed no result lines")
-        for line in rows[:8]:
-            print(f"[examples] {ex}: {line}")
-
-
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2646,48 +2771,58 @@ def main(argv=None) -> int:
     flash = phase("flash", check_flash, gen)
     decode = phase("decode", check_decode, gen)
     ssd = phase("ssd_scan", check_ssd, gen)
+    pick = phase("group_pick", check_group_pick)
     # before the serving profiles: after them, device_ms of a long kernel
     # read as little as half its time by CUDA events
     if opts.old_csrc:
         phase("old vs new", compare_old, opts.old_csrc, gen)
-    phase(f"{ARCH} full width", check_full_model, ARCH, 8, 192)
-    for arch in SSM_ARCHS:
-        phase(f"{arch} full width", check_full_model, arch, 300, 320)
-    for arch in DENSE_ARCHS:
-        phase(f"{arch} full width", check_full_model, arch, 8, 192)
-    for arch, prompt_len, max_len, depth in FAMILY_CHECKS:
-        phase(f"{arch} full width", check_full_model, arch, prompt_len,
-              max_len, depth)
-    launches = phase(f"{ARCH} serving", run_main_path, ARCH, ("sfs", "cfs"))
-    for arch in SSM_ARCHS + DENSE_ARCHS + FAMILY_ARCHS:
-        for name, n in phase(f"{arch} serving", run_main_path, arch,
-                             ("sfs",), 1, card).items():
-            launches[name] += n
-    for arch in REPLICA_ARCHS:
-        for name, n in phase(f"{arch} replicas", run_main_path, arch,
-                             ("sfs",), 2, card).items():
-            launches[name] += n
-    phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
-    for arch in SSM_ARCHS + ("gemma-7b",) + FAMILY_ARCHS:
-        phase(f"{arch} profile", profile_main_path, arch, 8)
-    phase("training", run_training)
-    phase("sharded training", run_sharded_training)
-    phase("dry run", run_dry_run)
-    phase("blocked attention", check_blocked_attention)
-    pick = phase("group_pick", check_group_pick)
-    phase("fleet 64x4", check_fleet_cpu_vs_cuda)
-    phase("traces", check_traces)
-    phase("chaos", check_chaos)
-    # the recorded host-backend rows and the DES rows are host code that
-    # shares nothing: one pool of worker processes runs both
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
-        phase("recorded rows", check_recorded_rows, pool)
-        phase("des rows", check_des_rows, pool)
-    launches["group_pick"] = phase("fleet1024", run_fleet_main_path)
-    phase("fleet profile", profile_fleet)
-    phase("examples", check_examples)
-    phase("lint", check_lint)
+    # the host-only phases run in worker processes from here on, beside
+    # the card's phases (after the kernel timings above), longest jobs
+    # first, and are checked at the end
+    host = HostPhases()
+    try:
+        host.start("dry run", run_dryrun_cell, list(DRYRUN_CELLS),
+                   check_dry_run)
+        host.start("recorded rows", run_recorded,
+                   recorded_jobs(("vector", "tick")), check_recorded)
+        host.start("des rows", run_des_job, des_jobs(), check_des)
+        host.start("host examples", run_command,
+                   [[str(ROOT / "examples" / ex)] for ex in HOST_EXAMPLES],
+                   check_host_examples)
+        host.start("lint", run_lint, [None], check_lint)
+        phase(f"{ARCH} full width", check_full_model, ARCH, 8, 192)
+        for arch in SSM_ARCHS:
+            phase(f"{arch} full width", check_full_model, arch, 300, 320)
+        for arch in DENSE_ARCHS:
+            phase(f"{arch} full width", check_full_model, arch, 8, 192)
+        for arch, prompt_len, max_len, depth in FAMILY_CHECKS:
+            phase(f"{arch} full width", check_full_model, arch, prompt_len,
+                  max_len, depth)
+        launches = phase(f"{ARCH} serving", run_main_path, ARCH,
+                         ("sfs", "cfs"))
+        for arch in SSM_ARCHS + DENSE_ARCHS + FAMILY_ARCHS:
+            for name, n in phase(f"{arch} serving", run_main_path, arch,
+                                 ("sfs",), 1, card).items():
+                launches[name] += n
+        for arch in REPLICA_ARCHS:
+            for name, n in phase(f"{arch} replicas", run_main_path, arch,
+                                 ("sfs",), 2, card).items():
+                launches[name] += n
+        phase(f"{ARCH} profile", profile_main_path, ARCH, 16)
+        for arch in SSM_ARCHS + ("gemma-7b",) + FAMILY_ARCHS:
+            phase(f"{arch} profile", profile_main_path, arch, 8)
+        phase("training", run_training)
+        phase("sharded training", run_sharded_training)
+        phase("blocked attention", check_blocked_attention)
+        phase("fleet 64x4", check_fleet_cpu_vs_cuda)
+        phase("traces", check_traces)
+        phase("chaos and recorded rows (torch)", check_recorded_rows)
+        launches["group_pick"] = phase("fleet1024", run_fleet_main_path)
+        phase("fleet profile", profile_fleet)
+        phase("examples", run_serve_example)
+        phase("host phases", host.finish)
+    finally:
+        host.close()
     kernels = []
     for name, rec, line in (("flash_attention", flash, 71),
                             ("decode_attention", decode, 69),

@@ -414,6 +414,31 @@ def local_offset(x: DTensor, dim: int) -> int:
     return off
 
 
+def local_slices(x: DTensor) -> tuple:
+    """This rank's shard of ``x`` as one slice of each dim of the whole
+    tensor (``local_offset`` and the local length; an empty uneven shard
+    gives an empty slice).  A partial sum has no shard: reduce it
+    first."""
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"{x.placements}: a partial sum has no shard to "
+                         "slice; reduce it first")
+    n = x.to_local().shape
+    return tuple(slice(o, o + n[d]) for d, o in
+                 enumerate(local_offset(x, d) for d in range(x.dim())))
+
+
+def global_mean(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """``x.mean(dim)`` (every dim if None).  For a DTensor, replicated on
+    its mesh: each rank sums its own shard, the partial sums are
+    all-reduced and divided by the whole count (DTensor's ``mean`` over
+    an unevenly split dim gathers the whole input on every rank first)."""
+    if not isinstance(x, DTensor):
+        return x.mean() if dim is None else x.mean(dim=dim)
+    s = x.sum() if dim is None else x.sum(dim=dim)
+    s = s.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return s / (x.numel() if dim is None else x.shape[dim])
+
+
 def local_index(idx: torch.Tensor, n: int, offset: int) -> tuple:
     """Global indices ``idx`` into a dim of which this rank holds ``n``
     entries from ``offset``: (local indices clamped into range, whether

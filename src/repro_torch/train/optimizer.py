@@ -28,8 +28,12 @@ The reference's arithmetic is kept, quirks included:
 
 On a sharded model (DTensor parameters) AdamW's moments take their
 parameter's placements; Adafactor's statistics are replicated, as the
-reference's rules leave them, and its means over a sharded leaf are
-all-reduced by DTensor.
+reference's rules leave them.  Its update is built on each rank's shard
+of the leaf's gradient, as the reference's GSPMD shards it: the means
+(the statistics', the update clip's and the parameter RMS) are sums of
+the local shards, all-reduced, and the factored update takes the rows
+and columns of the statistics that the shard holds.  No temporary is
+larger than a rank's shard of the leaf, uneven shards included.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.sharding.plan import zeros_like_placed
+from repro_torch.sharding.plan import (full_value, global_mean,
+                                       local_slices, zeros_like_placed)
 from repro_torch.train import leaves as LV
 
 
@@ -102,6 +108,25 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 # ---------------------------------------------------------------------------
 
 
+def _factored(g: torch.Tensor, r: torch.Tensor, vc: torch.Tensor,
+              eps1: float) -> torch.Tensor:
+    """The factored update ``g / (sqrt(r)[..., None] * sqrt(vc)[...,
+    None, :] + eps1)``.  For a sharded ``g`` it is built on each rank's
+    shard, with the replicated ``r`` and ``vc`` sliced to the shard's
+    rows and columns, and keeps ``g``'s placements: the outer product
+    of the whole statistics would be the leaf's global size on every
+    device.  Each element is the same arithmetic either way."""
+    if not isinstance(g, DTensor):
+        return g / (r.sqrt()[..., None] * vc.sqrt()[..., None, :] + eps1)
+    sl = local_slices(g)
+    sr = full_value(r)[sl[:-1]].sqrt()
+    sc = full_value(vc)[sl[:-2] + sl[-1:]].sqrt()
+    u = g.to_local() / (sr[..., None] * sc[..., None, :] + eps1)
+    return DTensor.from_local(u, g.device_mesh, g.placements,
+                              run_check=False, shape=g.shape,
+                              stride=g.stride())
+
+
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
               eps2: float = 1e-3, clip_threshold: float = 1.0,
               weight_decay: float = 0.0, warmup_steps: int = 100
@@ -137,20 +162,20 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
             s = state["f"][leaf.key]
             g2 = g.square().add_(eps1)
             if "vr" in s:
-                vr = s["vr"].mul_(beta2).add_(g2.mean(dim=-1) * one_m)
-                vc = s["vc"].mul_(beta2).add_(g2.mean(dim=-2) * one_m)
+                vr = s["vr"].mul_(beta2).add_(global_mean(g2, -1) * one_m)
+                vc = s["vc"].mul_(beta2).add_(global_mean(g2, -2) * one_m)
                 r = vr / vr.mean(dim=-1, keepdim=True).clamp_min(eps1)
-                u = g / (r.sqrt()[..., None] * vc.sqrt()[..., None, :]
-                         + eps1)
+                u = _factored(g, r, vc, eps1)
             else:
                 v = s["v"].mul_(beta2).add_(g2 * one_m)
                 u = g / (v.sqrt() + eps1)
             del g, g2
             # update clipping (RMS of update <= clip_threshold)
-            rms = torch.sqrt(u.square().mean() + eps1)
+            rms = torch.sqrt(global_mean(u.square()) + eps1)
             u = u / torch.clamp_min(rms / clip_threshold, 1.0)
             p32 = LV.to_ref(leaf, ps).float()
-            scale = torch.clamp_min(torch.sqrt(p32.square().mean()), eps2)
+            scale = torch.clamp_min(
+                torch.sqrt(global_mean(p32.square())), eps2)
             upd = (scale * -lr_t) * u
             if weight_decay:
                 upd = upd - lr_t * weight_decay * p32

@@ -35,7 +35,13 @@ buffers.  The three accumulation modes keep the reference's arithmetic:
   bfloat16 sum rounds as the reference's does.  Each microbatch's
   backward runs right after its forward, so one microbatch's
   activations are live at a time, which is what the reference's
-  checkpoint of the scan body buys it.
+  checkpoint of the scan body buys it.  Under a plan each parameter's
+  gradient is reduced onto the parameter's shards as soon as the
+  backward has accumulated it (``_reduce_grad``), as the reference's
+  sharded scan carry holds it: left until the backward ends, every
+  weight's gradient would be live at once, gathered over the fsdp
+  axis.  The all-reduces onto replicated dims, which free nothing, run
+  once after the last microbatch.
 
 The reported loss includes the aux losses; ``grad_norm`` is taken after
 the error feedback, in float32.
@@ -157,6 +163,20 @@ def _split_microbatches(batch: dict, n: int) -> list:
             for i in range(n)]
 
 
+def _reduce_grad(p: DTensor) -> None:
+    """A sharded parameter's accumulated gradient (a post-accumulate-grad
+    hook), brought onto the parameter's shard on every mesh dim where
+    that shrinks what this rank holds: a partial sum is reduce-scattered,
+    a replica sliced.  A reduction that shrinks nothing (a partial sum
+    onto a dim the parameter is replicated on: an all-reduce) waits for
+    the end of the backward, once for all the microbatches."""
+    g = p.grad
+    mid = tuple(want if want.is_shard() and not have.is_shard() else have
+                for have, want in zip(g.placements, p.placements))
+    if mid != tuple(g.placements):
+        p.grad = g.redistribute(p.device_mesh, mid)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                     grad_compression: Optional[str] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
@@ -191,16 +211,23 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         if cfg.grad_accum == "fused":
             for p in params:
                 p.grad = None
-            for i in reversed(range(nmb)):
-                l, _ = loss_fn(model, mbs[i])
-                (l / nmb).backward()
-                losses[i] = l.detach()
+            hooks = [p.register_post_accumulate_grad_hook(_reduce_grad)
+                     for p in params if isinstance(p, DTensor)]
+            try:
+                for i in reversed(range(nmb)):
+                    l, _ = loss_fn(model, mbs[i])
+                    (l / nmb).backward()
+                    losses[i] = l.detach()
+            finally:
+                for h in hooks:
+                    h.remove()
             grads = {}
             for n, p in zip(names, params):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if isinstance(g, DTensor):
                     g = g.redistribute(p.device_mesh, p.placements)
                 grads[n] = g
+            for p in params:
                 p.grad = None
         else:
             grads = {n: torch.zeros_like(

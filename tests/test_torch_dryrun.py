@@ -13,6 +13,11 @@
   the per-device bytes of params, optimizer state and cache equal what
   the reference's specs give at those axis sizes (GSPMD pads a dim split
   k ways to ``ceil(dim / k)``, the size of DTensor's first shard).
+* Reduced llama3-405b's ``train_4k`` (Adafactor, fused accumulation)
+  on the same world: no storage made during the optimizer's update is
+  larger than one rank's shard of the largest leaf in float32, and each
+  gradient is reduced onto its parameter's placements during the
+  backward.
 """
 import math
 
@@ -153,6 +158,12 @@ def tree_bytes(tree, specs) -> int:
 @pytest.mark.parametrize("arch,shape", MINI_CELLS)
 def test_mini_dryrun_state_bytes_match_reference_specs(arch, shape,
                                                        fake_mesh):
+    measure_mini_cell(arch, shape, fake_mesh)
+
+
+def measure_mini_cell(arch: str, shape: str, fake_mesh) -> dict:
+    """Trace the reduced cell on the fake world and hold its record's
+    state bytes to the reference's specs; returns the record."""
     cfg = configs.get_reduced(arch).replace(microbatch=2)
     cfg_r = ref_configs.get_reduced(arch).replace(microbatch=2)
     specs = configs.input_specs(cfg, shape, batch_override=8,
@@ -196,6 +207,55 @@ def test_mini_dryrun_state_bytes_match_reference_specs(arch, shape,
     assert "state" in held["by_op"] or len(held["by_op"]) == 12
     assert res["cost"]["flops_per_device"] > 0
     assert res["collectives"]["n_collectives"] > 0
+    return res
+
+
+def test_adafactor_update_stays_on_the_shard(fake_mesh, monkeypatch):
+    """Reduced llama3-405b's ``train_4k`` cell (Adafactor, fsdp) on the
+    fake 2x2x2 world, as the mini cells run: no storage made during the
+    optimizer's update is larger than the largest local shard of a
+    reference leaf in float32 (the first, ``ceil``-sized shard of an
+    uneven dim), as GSPMD shards the reference's update; the state's
+    bytes still equal the reference's specs."""
+    from repro_torch.train.optimizer import Optimizer, get_optimizer
+    arch, shape = "llama3-405b", "train_4k"
+    made, updating = [], []
+
+    def probed(name: str) -> Optimizer:
+        opt = get_optimizer(name)
+
+        def update(*args):
+            updating.append(True)
+            try:
+                opt.update(*args)
+            finally:
+                updating.pop()
+        return Optimizer(opt.init, update)
+    track = dryrun.CellRecorder._track
+
+    def tracked(rec, t, op="state"):
+        st = t.untyped_storage()
+        if updating and id(st) not in rec._live:
+            made.append((st.nbytes(), op))
+        track(rec, t, op)
+    monkeypatch.setattr(dryrun, "get_optimizer", probed)
+    monkeypatch.setattr(dryrun.CellRecorder, "_track", tracked)
+    measure_mini_cell(arch, shape, fake_mesh)
+
+    cfg_r = ref_configs.get_reduced(arch).replace(microbatch=2)
+    assert cfg_r.optimizer == "adafactor"
+    params = abstract_train_state(
+        cfg_r, ref_get_optimizer(cfg_r.optimizer))["params"]
+    plan = ref_dryrun.build_plan(cfg_r, shape, RefMesh())
+    specs = jax.tree.leaves(ref_plan.param_specs(plan, params),
+                            is_leaf=lambda x: isinstance(x, P))
+    shard = max(spec_bytes(l, s) // np.dtype(l.dtype).itemsize * 4
+                for l, s in zip(jax.tree.leaves(params), specs))
+    assert made, "the update made no storage"
+    biggest = max(made)
+    assert biggest[0] <= shard, (
+        f"{biggest[1]} made {biggest[0]} B during the update; the largest "
+        f"local shard of a leaf is {shard} B in float32")
 
 
 def test_kernel_wrappers_refuse_dtensors(fake_mesh):
@@ -269,3 +329,48 @@ def test_checkpointed_backward_on_another_thread(fake_mesh):
     if "error" in out:
         raise out["error"]
     assert len(out["grads"]) == len(params)
+
+
+def test_fused_gradients_are_reduced_in_the_backward(fake_mesh,
+                                                     monkeypatch):
+    """Reduced llama3-405b's ``train_4k`` cell (fused accumulation, 2
+    microbatches) on the fake 2x2x2 world: when the second microbatch
+    starts, every sharded parameter's accumulated gradient already lies
+    on the parameter's shard on each mesh dim the parameter is sharded
+    on, reduced as the backward made it, so no rank holds a whole
+    backward's unreduced gradients (each weight's gradient gathered over
+    "data": 50.5 GB a device in the full llama3-405b's dry run on
+    16x16).  A partial sum onto a dim the parameter is replicated on
+    (an all-reduce, which frees nothing) waits for the last microbatch,
+    and the optimizer gets every gradient on its parameter's
+    placements."""
+    from repro_torch.train import step
+    loss_fn, seen = step.loss_fn, []
+
+    def probed(model, batch):
+        seen.append([(tuple(p.grad.placements), tuple(p.placements))
+                     for p in model.parameters() if p.grad is not None])
+        return loss_fn(model, batch)
+    monkeypatch.setattr(step, "loss_fn", probed)
+    get_optimizer, given = dryrun.get_optimizer, []
+
+    def probed_opt(name: str):
+        opt = get_optimizer(name)
+
+        def update(grads, state, model):
+            params = dict(model.named_parameters())
+            given.extend((tuple(g.placements), tuple(params[n].placements))
+                         for n, g in grads.items())
+            return opt.update(grads, state, model)
+        return opt._replace(update=update)
+    monkeypatch.setattr(dryrun, "get_optimizer", probed_opt)
+    measure_mini_cell("llama3-405b", "train_4k", fake_mesh)
+    assert len(seen) == 2 and not seen[0] and seen[1]
+    off = [(g, p) for g, p in seen[1]
+           if any(w.is_shard() and h != w for h, w in zip(g, p))]
+    assert not off, f"{len(off)} gradients off their shards: {off[:3]}"
+    assert any(h.is_partial() and w.is_replicate()
+               for g, p in seen[1] for h, w in zip(g, p)), (
+        "no all-reduce was left to the last microbatch")
+    assert given and all(g == p for g, p in given), [
+        (g, p) for g, p in given if g != p][:3]

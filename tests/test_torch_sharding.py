@@ -160,7 +160,8 @@ STEP_WORKER = textwrap.dedent("""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import train_state_from_jax
     from repro_torch.sharding.plan import Plan, full_value, use_plan
-    from repro_torch.train.optimizer import adamw
+    from repro_torch.train import leaves as LV
+    from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.step import init_train_state, make_train_step
 
     d = sys.argv[1]
@@ -172,33 +173,58 @@ STEP_WORKER = textwrap.dedent("""
     mesh = make_mesh(job["mesh"], names, device_type="cpu")
     cfg = configs.get_reduced(job["arch"]).replace(dtype="float32",
                                                    **job["over"])
-    opt = adamw(lr=1e-3)
+    opt = get_optimizer(cfg.optimizer, **job["opt_kw"])
     plan = Plan(mesh=mesh, fsdp=True, rules=job["rules"])
     state = init_train_state(cfg, opt, device="cpu")
     train_state_from_jax(state, job["state"], plan=plan)
     batch = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
     with use_plan(plan):
         state, m = make_train_step(cfg, opt)(state, batch)
-    head = full_value(dict(state["model"].named_parameters())
-                      ["lm_head.weight"]).detach()
+    params = dict(state["model"].named_parameters())
+    head = full_value(params["lm_head.weight"]).detach()
+    # every parameter leaf after the update, and Adafactor's statistics,
+    # whole and in the reference's layout
+    leaves = {}
+    for leaf in LV.param_leaves(cfg):
+        leaves["params:" + leaf.key] = full_value(LV.to_ref(
+            leaf, [params[n].detach() for n in leaf.names]))
+        for k, t in state["opt"].get("f", {}).get(leaf.key, {}).items():
+            leaves[k + ":" + leaf.key] = full_value(t)
     if dist.get_rank() == 0:
         np.savez(d + "/out.npz", loss=float(m["loss"]),
                  grad_norm=float(m["grad_norm"]),
-                 lm_head=head.t().contiguous().numpy())
+                 lm_head=head.t().contiguous().numpy(),
+                 **{k: v.numpy() for k, v in leaves.items()})
     dist.destroy_process_group()
 """)
 
 
-# (arch, mesh, config overrides, plan rules); mamba2's microbatches of
-# 2 rows do not split over pod x data (4 ranks: rows_plan keeps "data",
-# as llama3-405b's 16 rows on 2x16x16), and the last case splits 6
-# heads over 4 ranks (uneven, as llava-next-34b's 56 over 16) under
-# sequence parallelism
+# (arch, mesh, config overrides, plan rules); the optimizer is the
+# config's (AdamW unless an override or the arch names Adafactor);
+# mamba2's microbatches of 2 rows do not split over pod x data (4 ranks:
+# rows_plan keeps "data", as llama3-405b's 16 rows on 2x16x16), the
+# fourth case splits 6 heads over 4 ranks (uneven, as llava-next-34b's
+# 56 over 16) under sequence parallelism, and the Adafactor cases shard
+# both matrix dims of the MLP leaves (fsdp on "data", ff on "model"):
+# llama3-405b's d_ff of 90 on 4 ranks (shards of 23, 23, 23 and 21,
+# sliced from both statistics) and of 9 (3, 3, 3 and an empty shard),
+# dbrx-132b's stacked experts on 2x2x2
 STEP_CASES = [("qwen2.5-3b", (2, 4), {}, {}),
               ("qwen3-moe-30b-a3b", (2, 2, 2), {}, {}),
               ("mamba2-1.3b", (2, 2, 2), dict(microbatch=4), {}),
               ("qwen2.5-3b", (2, 4), dict(n_heads=6, d_model=96),
-               {"seq": "model"})]
+               {"seq": "model"}),
+              ("llama3-405b", (2, 4), dict(optimizer="adafactor",
+                                           grad_accum="fused", d_ff=90), {}),
+              ("llama3-405b", (2, 4), dict(optimizer="adafactor",
+                                           grad_accum="fused", d_ff=9), {}),
+              ("dbrx-132b", (2, 2, 2), dict(optimizer="adafactor"), {})]
+
+# Adafactor's first step at its default warmup of 100 moves a parameter
+# by lr / 100 x its leaf's RMS x u, ~5e-6 an element, which atol 1e-4
+# would not see: its cases warm up in one step
+OPT_KW = {"adamw": dict(lr=1e-3), "adafactor": dict(lr=1e-3,
+                                                    warmup_steps=1)}
 
 
 @pytest.mark.parametrize("arch,mesh,over,rules", STEP_CASES)
@@ -206,13 +232,14 @@ def test_sharded_step_equals_reference_unsharded(arch, mesh, over, rules,
                                                  tmp_path):
     cfg = ref_configs.get_reduced(arch).replace(dtype="float32", **over)
     assert cfg.fsdp or arch == "qwen2.5-3b"
-    opt = ref_opt.adamw(lr=1e-3)
+    opt = ref_opt.get_optimizer(cfg.optimizer, **OPT_KW[cfg.optimizer])
     state = jax.jit(partial(ref_step.init_train_state, cfg, opt))(
         jax.random.PRNGKey(0))
     dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=0)
     batch = make_batch(dc, jnp.int32(0))
     s_ref, m_ref = jax.jit(ref_step.make_train_step(cfg, opt))(state, batch)
     job = {"arch": arch, "mesh": mesh, "over": over, "rules": rules,
+           "opt_kw": OPT_KW[cfg.optimizer],
            "state": jax.tree.map(np.asarray, state),
            "batch": {k: np.asarray(v).astype(np.int64)
                      for k, v in batch.items()}}
@@ -227,3 +254,27 @@ def test_sharded_step_equals_reference_unsharded(arch, mesh, over, rules,
     np.testing.assert_allclose(out["lm_head"],
                                np.asarray(s_ref["params"]["lm_head"]),
                                atol=1e-4)
+    for leaf in LV.param_leaves(configs.get_reduced(arch).replace(**over)):
+        before = np.asarray(LV.get_path(state["params"], leaf.path))
+        want = np.asarray(LV.get_path(s_ref["params"], leaf.path))
+        np.testing.assert_allclose(out["params:" + leaf.key], want,
+                                   atol=1e-4, err_msg=leaf.key)
+        if cfg.optimizer != "adafactor":
+            continue
+        # Adafactor's update itself, to a thousandth of its largest
+        # element (AdamW's first step is g / (|g| + eps), whose sign
+        # flips where a gradient is float noise about zero)
+        dp = want - before
+        np.testing.assert_allclose(out["params:" + leaf.key] - before, dp,
+                                   atol=1e-3 * np.abs(dp).max(),
+                                   err_msg="update of " + leaf.key)
+        stats = LV.get_path(s_ref["opt"]["f"], leaf.path)
+        assert stats, leaf.key
+        for k, v in stats.items():
+            # an element 1e7 times below the statistic's largest is the
+            # square of a gradient sum that cancelled, where float32's
+            # order of summation alone moves it by more than 1e-4
+            v = np.asarray(v)
+            np.testing.assert_allclose(out[k + ":" + leaf.key], v,
+                                       rtol=1e-4, atol=1e-7 * v.max(),
+                                       err_msg=f"{k} {leaf.key}")
